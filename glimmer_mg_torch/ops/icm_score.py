@@ -1,16 +1,25 @@
-"""Plain PyTorch six-frame ICM walk (the twin of the CUDA kernel).
+"""Plain PyTorch ICM walks: the exact walk and the twins of the CUDA kernels.
 
-Counterpart of ``glimmer_mg_tpu.ops.icm_score`` for the per-read
-prediction path. The 11-base context window of each position is packed
-into one int32 (2 bits per base, window position w at bits 2w..2w+1), so
-a walk step ``child = 4*node + base[ctx_pos[node]] + 1`` is one table read
+Counterpart of ``glimmer_mg_tpu.ops.icm_score``. The 11-base context
+window of each position is packed into one int32 (2 bits per base, window
+position w at bits 2w..2w+1), so a walk step
+``child = 4*node + base[ctx_pos[node]] + 1`` is one table read
 (``mip[node]``) plus shifts on the packed integer. The walk is unrolled
 ``depth`` times with masks; partial windows at the start of a sequence
 fall out of a per-position threshold.
 
-Every output value is a table read with no float arithmetic, so the
-results are bitwise equal to the JAX walk and to the CUDA kernel in
-``ops/icm_cuda.py``, which calls this module for CPU tensors.
+Two paths use it:
+  * per-read prediction: ``mg_six_frame_batch``, the twin of the six-frame
+    kernel ``csrc/six_frame.cu``. Every output value is a table read with
+    no float arithmetic, so it is bitwise equal to the JAX walk and to the
+    kernel;
+  * Phymm classification: ``bank_score_reads``, the exact f32 walk, and
+    ``bank_score_reads_packed``, the twin of the bank-walk kernel
+    ``csrc/bank_walk.cu`` over the 16-bit fixed-point tables of
+    ``icm_cuda.pack_tables``. The twin sums integers, so it is bitwise
+    equal to the kernel and to the Pallas kernel while |score| < 65,536.
+
+``ops/icm_cuda.py`` calls the twins for CPU tensors.
 """
 
 from __future__ import annotations
@@ -57,6 +66,123 @@ def _tree_walk(mip_flat, depth: int, base_off, ctx, thresh):
     pos = mip_flat[(base_off + node).long()]
     parent = torch.div(node - 1, 4, rounding_mode="floor")
     return torch.where(pos == -2, parent, node)
+
+
+def _cycle_fields(seq, model_len: int, periodicity: int, frame0: int = 0,
+                  cycle: bool = True):
+    """Per-position (ctx, thresh, frame) of sequences along the last axis;
+    with ``cycle`` the frame advances per base (Score_String), else it
+    stays ``frame0`` (Frame_Score)."""
+    n = seq.shape[-1]
+    i = torch.arange(n, dtype=torch.int32, device=seq.device)
+    thresh = ((model_len - 1) - i).clamp(min=0)
+    frame = (frame0 + i) % periodicity if cycle else \
+        torch.full_like(i, frame0 % periodicity)
+    return pack_contexts(seq, model_len), thresh, frame
+
+
+def _model_logprob(mip32, probs, seq, ctx, thresh, frame, depth: int):
+    """Per-position log-probs under one ICM (``mip32`` (P, N) int32)."""
+    base_off = frame * mip32.shape[1]
+    node = _tree_walk(mip32.reshape(-1), depth, base_off, ctx, thresh)
+    return probs.reshape(-1)[((base_off + node) * 4 + seq).long()]
+
+
+def per_base_logprob(mip, probs, base_idx, frame0: int, model_len: int,
+                     depth: int, cycle: bool = True):
+    """Per-base log-probs of sequences (last axis) under one ICM.
+
+    mip (P, N) int, probs (P, N, 4) f32, base_idx (..., L) int. Table
+    reads only, so bitwise equal to
+    ``glimmer_mg_tpu.ops.icm_score.per_base_logprob``.
+    """
+    seq = base_idx.to(torch.int32)
+    ctx, thresh, frame = _cycle_fields(seq, model_len, mip.shape[0], frame0,
+                                       cycle)
+    return _model_logprob(mip.to(torch.int32), probs, seq, ctx, thresh,
+                          frame, depth)
+
+
+def score_string(mip, probs, base_idx, frame0: int, model_len: int,
+                 depth: int):
+    """Total log-prob (f32 sum) of a sequence, frame cycling."""
+    return per_base_logprob(mip, probs, base_idx, frame0, model_len,
+                            depth).sum(dim=-1)
+
+
+def bank_score_reads(bank_mip, bank_probs, reads, lengths, model_len: int,
+                     depth: int):
+    """(B, M) total f32 log-prob of each padded read under each bank ICM,
+    frame 0 at base 0, cycling (the exact classification walk).
+
+    bank_mip (M, P, N) int, bank_probs (M, P, N, 4) f32, reads (B, L) int,
+    lengths (B,). One model at a time.
+    """
+    seq = reads.to(torch.int32)
+    ctx, thresh, frame = _cycle_fields(seq, model_len, bank_mip.shape[1])
+    valid = (torch.arange(seq.shape[1], device=seq.device)[None, :]
+             < lengths[:, None])
+    mip32 = bank_mip.to(torch.int32)
+    out = torch.empty((seq.shape[0], bank_mip.shape[0]), dtype=torch.float32,
+                      device=seq.device)
+    for k in range(bank_mip.shape[0]):
+        per = _model_logprob(mip32[k], bank_probs[k], seq, ctx, thresh, frame,
+                             depth)
+        out[:, k] = torch.where(valid, per, 0.0).sum(dim=1)
+    return out
+
+
+def bank_score_reads_packed(level_mip, probs_pk, reads, lengths,
+                            model_len: int, depth: int):
+    """(B, M) fixed-point total log-prob of each read under each bank ICM:
+    the twin of the bank-walk kernel (``csrc/bank_walk.cu``) and of the
+    Pallas ``_walk_kernel`` plus its wrapper's masked sum.
+
+    level_mip (M, 3, LR, 128) int32 and probs_pk (M, 3, R2, 128) int32 are
+    ``icm_cuda.pack_tables`` output; reads (B, L) int, lengths (B,).
+    Position i uses frame i % 3 and walks ``depth`` levels, level k
+    reading ``level_mip[m, f, off_k + (o >> 7), o & 127]`` with
+    ``o = node - (4^k - 1)/3``; its value is the int16 half
+    ``last & 1`` of ``probs_pk[m, f, (node >> 7)*2 + (last >> 1),
+    node & 127]``. Positions at or past a read's length are masked, the
+    int16 values summed as integers and scaled once by 1/256.
+    """
+    from .icm_cuda import FIXED_SCALE, LANES, _level_rows
+
+    m, p, lr, _lanes = level_mip.shape
+    r2 = probs_pk.shape[2]
+    seq = reads.to(torch.int32)
+    ctx, thresh, frame = _cycle_fields(seq, model_len, p)
+    valid = (torch.arange(seq.shape[1], device=seq.device)[None, :]
+             < lengths[:, None])
+    row_off = np.cumsum([0] + _level_rows(depth)).tolist()
+    lm_flat = level_mip.reshape(-1)
+    pk_flat = probs_pk.reshape(-1)
+    frame64 = frame.long()
+    lo = (seq >> 1) * LANES
+    high_half = (seq & 1) == 1
+    out = torch.empty((seq.shape[0], m), dtype=torch.float32,
+                      device=seq.device)
+    for k in range(m):
+        tab = (k * p + frame64) * (lr * LANES)  # (L,) the position's table
+        node = torch.zeros_like(ctx)
+        done = torch.zeros(ctx.shape, dtype=torch.bool, device=ctx.device)
+        for lev in range(depth):
+            o = node - (4 ** lev - 1) // 3
+            idx = torch.where(done, tab, tab + row_off[lev] * LANES + o)
+            pos = lm_flat[idx]
+            avail = pos >= thresh
+            b = (ctx >> (2 * pos.clamp(min=0))) & 3
+            node = torch.where(done | ~avail, node, 4 * node + b + 1)
+            done = done | ~avail
+        ptab = (k * p + frame64) * (r2 * LANES)
+        acc = pk_flat[ptab + (node >> 7) * (2 * LANES) + lo
+                      + (node & (LANES - 1))]
+        val = torch.where(high_half, acc >> 16,
+                          ((acc & 0xFFFF) ^ 0x8000) - 0x8000)
+        total = torch.where(valid, val, 0).sum(dim=1)
+        out[:, k] = total.to(torch.float32) * (1.0 / FIXED_SCALE)
+    return out
 
 
 def _banked_logprob(mip_flat, probs_flat, num_nodes: int, periodicity: int,

@@ -156,3 +156,30 @@ def batch_inputs(reads, cmap, gd, l_pad, b_pad):
 
 def coords(genes):
     return [(g.id, g.start, g.stop, g.frame) for g in genes]
+
+
+# wrapper arguments with one out of range (bad_bank_walk_call cases)
+BAD = ["depth_too_deep", "length_not_multiple_of_3", "length_past_L",
+       "length_negative", "prob_rows_short", "model_len_too_long"]
+
+
+def bad_bank_walk_call(t, case):
+    """bank_score_reads_kernel arguments (list, kwargs) with one out of
+    range; ``t`` = [level_mip, probs_pk, reads, lengths]."""
+    t, kw = list(t), {"model_len": 12, "depth": 7}
+    if case == "depth_too_deep":
+        kw["depth"] = 8
+    elif case == "length_not_multiple_of_3":
+        t[2] = t[2][:, :-1].contiguous()
+        t[3] = t[3].clamp(max=t[2].shape[1])
+    elif case == "length_past_L":
+        t[3] = t[3].clone()
+        t[3][1] = t[2].shape[1] + 1
+    elif case == "length_negative":
+        t[3] = t[3].clone()
+        t[3][0] = -1
+    elif case == "prob_rows_short":
+        t[1] = t[1][:, :, :-2].contiguous()
+    else:
+        kw["model_len"] = 17
+    return t, kw
