@@ -15,16 +15,20 @@ Phases (any failure raises and exits non-zero):
      groups of depth-7 ICMs): bitwise equal; median times of both (CUDA
      events);
   4. K2, the Phymm bank-walk kernel, against its twin at one
-     classification batch of the full bank (B 512 x L 702 x M 512):
-     bitwise equal; median times of both, the kernel's model-Mbp/s;
+     classification batch of the full bank (B 512 x L 702 x M 512), one
+     strand and both strands in one launch: bitwise equal; median times of
+     the kernel and the twin, the kernel's model-Mbp/s, its bound;
+  4b. K2 over 8-bit tables (pack_tables_int8, 16 models at a time) against
+     the 8-bit twin at the same shape, one strand: bitwise equal; times and
+     bound. No path of the port runs it (as in the JAX package);
   5. the prediction path: reads of 300/500/700 bp sampled from the
      genomes, each classified to its source genome and every other read
      also to a second genome, predicted by the port's
      run_glimmer_mg_classes(device="cuda"). Checks: K1 launched, only
      overflow reads took the host route (at most 5%), the first reads'
-     .predict text byte-identical to the exact host engine (the JAX
-     package's pure numpy/Python per-read engine, which the port imports
-     and runs with host_engine=True), finite scores. Prints warm reads/s
+     .predict text byte-identical to the exact host engine (the port's
+     own copy of the pure numpy/Python per-read engine, engine/mg_host.py,
+     run with host_engine=True), finite scores. Prints warm reads/s
      from a second pass, a third pass's wall time split by layer, a pass
      with the f32 score carry, and a per-stage breakdown of one chunk;
   6. the pipeline path: the same reads as a FASTA file through the port's
@@ -38,12 +42,20 @@ Phases (any failure raises and exits non-zero):
      classify_file call's reads/s, model-Mbp/s and wall split by layer,
      and a warm pipeline run's wall split by stage.
 
-The script imports only glimmer_mg_torch (and, through it, the JAX-free
-host layers of glimmer_mg_tpu); no JAX module is loaded.
+The script imports only glimmer_mg_torch and checks at the end that no
+module of JAX or of glimmer_mg_tpu was loaded.
 
-The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}. Without CUDA it raises before printing a
-result.
+Each kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over the card's 3.35 TB/s and its integer instructions over
+the card's INT32 rate (64 lanes an SM x SMs x the maximum SM clock that
+nvidia-smi reports). The instructions are the walk's, counted in the SASS
+of build/libglimmer_mg_torch.so (cuobjdump -sass, sm_90a): a count per
+walk level, times the levels this run's walks enter (counted on the card),
+plus a count per walk.
+
+The third-to-last line is the card's name and power limit, the
+second-to-last the kernels' JSON record, the last {"ok": true, "device":
+{...}}. Without CUDA it raises before printing a result.
 """
 
 from __future__ import annotations
@@ -59,6 +71,15 @@ import tempfile
 import time
 
 DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+INT32_LANES_PER_SM = 64    # Hopper SM: 4 partitions x 16 INT32 lanes
+# integer instructions of the walks in the SASS (cuobjdump -sass, sm_90a)
+# of csrc/bank_walk.cu::walk_kernel<false, 7> and csrc/six_frame.cu::
+# six_frame_kernel<int16_t>: per level entered and per walk; for K1 also
+# the context of each (read, variant, position) at its least, a shift and
+# an or per base (the kernel's own build takes about 380)
+K2_OPS_PER_LEVEL, K2_OPS_PER_WALK = 7, 22
+K1_OPS_PER_LEVEL, K1_OPS_PER_WALK, K1_OPS_PER_POSITION = 12, 26, 22
 
 
 def log(msg):
@@ -70,6 +91,74 @@ def gpu_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s():
+    """INT32 lanes x SMs x the card's maximum SM clock (nvidia-smi)."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
+
+
+def bound(nbytes, ops):
+    """(bound ms, "bytes" or "operations") of a kernel's work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / int32_ops_per_s()
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def levels_entered(mip_at, depth, ctx, thresh, active):
+    """Levels the ICM walk enters, summed over the ``active`` positions
+    (a bool tensor of the walks' full shape): ``mip_at(k, node)`` is the
+    mut_info_pos of each walk's node at level k; a walk enters level k
+    when it did not stop before it."""
+    import torch
+
+    node = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
+    done = ~active
+    total = 0
+    for k in range(depth):
+        total += int((~done).sum())
+        pos = mip_at(k, node)
+        avail = pos >= thresh
+        b = (ctx >> (2 * pos.clamp(min=0))) & 3
+        node = torch.where(done | ~avail, node, 4 * node + b + 1)
+        done = done | ~avail
+    return total
+
+
+def bank_walk_levels(level_mip, reads, lengths, model_len, depth):
+    """Levels K2's walks enter over one strand: every position < length of
+    every read under every model, frame i % 3."""
+    import torch
+
+    from glimmer_mg_torch.ops import icm_cuda, icm_score
+
+    m, _p, lr, lanes = level_mip.shape
+    length = reads.shape[1]
+    i = torch.arange(length, dtype=torch.int32, device=reads.device)
+    ctx = icm_score.pack_contexts(reads, model_len)
+    thresh = (model_len - 1 - i).clamp(min=0)
+    valid = i[None, :] < lengths[:, None]
+    starts, off = [], 0
+    for k, rows in enumerate(icm_cuda._level_rows(depth)):
+        starts.append(off * lanes - (4 ** k - 1) // 3)
+        off += rows
+    flat = level_mip.reshape(-1)
+    total = 0
+    for m0 in range(0, m, 64):
+        models = torch.arange(m0, min(m, m0 + 64), device=reads.device)
+        tab = (models[:, None, None] * 3 + (i % 3)) * (lr * lanes)
+        active = valid.expand(len(models), *valid.shape)
+        total += levels_entered(lambda k, node: flat[tab + starts[k] + node],
+                                depth, ctx, thresh, active)
+    return total
 
 
 def synth_genome(rng, gc, size):
@@ -227,52 +316,135 @@ def sixframe_phase(gd, genomes, seed):
         raise AssertionError(f"six_frame kernel differs from twin ({err})")
     ms = cuda_ms(lambda: icm_cuda.mg_six_frame(*args, **kw))
     plain_ms = cuda_ms(lambda: icm_score.mg_six_frame_batch(*args, **kw))
+
+    # bound: every (read, variant, position) walks the gene ICM and the
+    # null ICM in 3 frames; the outputs are 2 x (B, 6, L) f32
+    nbytes = (sum(x.numel() * x.element_size() for x in args)
+              + 2 * kg.numel() * 4)
+    i = torch.arange(L, dtype=torch.int32, device=DEVICE)
+    active = torch.ones((B, L), dtype=torch.bool, device=DEVICE)
+    g, p, n = dev["gene_mip"].shape
+    n2 = dev["indep_mip"].shape[2]
+    gm = dev["gene_mip"].reshape(-1).to(torch.int32)
+    im = dev["indep_mip"].reshape(-1).to(torch.int32)
+    grp = t[2].long()[:, None]
+    levels = 0
+    for seq in icm_score.read_variants(t[0], t[1]):
+        ctx = icm_score.pack_contexts(seq, bank.model_len)
+        ctx_null = icm_score.pack_contexts(seq, 3)
+        for f in range(3):
+            goff = (grp * p + f % p) * n
+            ioff = (grp * 3 + f) * n2
+            levels += levels_entered(
+                lambda k, node: gm[goff + node], bank.depth, ctx,
+                (bank.model_len - 1 - i).clamp(min=0), active)
+            levels += levels_entered(lambda k, node: im[ioff + node], 2,
+                                     ctx_null, (2 - i).clamp(min=0), active)
+    walks = 2 * 2 * 3 * B * L
+    ops = (levels * K1_OPS_PER_LEVEL + walks * K1_OPS_PER_WALK
+           + 2 * B * L * K1_OPS_PER_POSITION)
+    bound_ms, bound_by = bound(nbytes, ops)
     log(f"K1 six_frame vs twin at B={B} L={L} G=16 depth={bank.depth}: "
         f"bitwise equal; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms "
-        f"(median of 5, CUDA events)")
+        f"(median of 5, CUDA events); bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G integer "
+        f"instructions: {walks} walks entering {levels} levels)")
     return {"name": "six_frame", "route": "cuda",
             "source": "glimmer_mg_torch/csrc/six_frame.cu",
             "replaces": "glimmer_mg_tpu/ops/icm_pallas.py:402",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def bankwalk_phase(bank, genomes, seed):
     """K2 vs its twin at one classification batch of the full bank (B 512
-    x L 702 x all ICMs); returns its record."""
+    x L 702 x all ICMs), one strand and both strands in one launch, then
+    K2 over 8-bit tables vs its twin; returns the records of both."""
+    import numpy as np
     import torch
 
     from glimmer_mg_torch.ops import icm_cuda, icm_score
     from glimmer_mg_torch.parallel.classify import pad_reads
 
     sample, _ = sample_reads(genomes, 512, seed + 4)
-    reads, lengths = pad_reads([s for _h, s in sample], length=702)
-    args = (*bank.tables, torch.from_numpy(reads).to(DEVICE),
-            torch.from_numpy(lengths).to(DEVICE), bank.model_len, bank.depth)
-    m = bank.tables[0].shape[0]
+    reads_np, lengths_np = pad_reads([s for _h, s in sample], length=702)
+    reads = torch.from_numpy(reads_np).to(DEVICE)
+    lengths = torch.from_numpy(lengths_np).to(DEVICE)
+    rc = icm_score.revcomp_reads(reads, lengths)
+    lm, pk = bank.tables
+    m = lm.shape[0]
+    shape = (bank.model_len, bank.depth)
 
-    icm_cuda.reset_launches()
-    got = icm_cuda.bank_score_reads_kernel(*args)
-    torch.cuda.synchronize()
-    assert icm_cuda.bank_walk_launches == 1
-    want = icm_score.bank_score_reads_packed(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        raise AssertionError(f"bank_walk kernel differs from twin ({err})")
-    assert bool(torch.isfinite(got).all()) and bool((got <= 0).all())
-    ms = cuda_ms(lambda: icm_cuda.bank_score_reads_kernel(*args))
-    plain_ms = cuda_ms(lambda: icm_score.bank_score_reads_packed(*args),
-                       reps=3)
-    model_mbp = float(lengths.sum()) * m / 1e6
-    log(f"K2 bank_walk vs twin at B=512 L=702 M={m} depth={bank.depth}: "
-        f"bitwise equal; kernel {ms:.4f} ms (median of 5), twin "
-        f"{plain_ms:.4f} ms (median of 3), CUDA events; kernel "
-        f"{model_mbp / (ms / 1e3):.1f} model-Mbp/s "
-        f"({model_mbp:.1f} model-Mbp per launch)")
-    return {"name": "bank_walk", "route": "cuda",
-            "source": "glimmer_mg_torch/csrc/bank_walk.cu",
-            "replaces": "glimmer_mg_tpu/ops/icm_pallas.py:201",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    def kernel(tables, strands, **kw):
+        fn = (icm_cuda.bank_score_reads_kernel if strands == 1
+              else icm_cuda.bank_score_both_strands)
+        return fn(*tables, reads, lengths, *shape, **kw)
+
+    def twin(tables, strands, **kw):
+        fwd = icm_score.bank_score_reads_packed(*tables, reads, lengths,
+                                                *shape, **kw)
+        if strands == 1:
+            return fwd
+        return torch.maximum(fwd, icm_score.bank_score_reads_packed(
+            *tables, rc, lengths, *shape, **kw))
+
+    levels = [bank_walk_levels(lm, r, lengths, *shape) for r in (reads, rc)]
+    positions = int(lengths.sum())
+    io_bytes = (reads.numel() + lengths.numel() + reads.shape[0] * m) * 4
+    model_mbp = positions * m / 1e6
+    # 8-bit tables, packed 16 models at a time as PhymmBank packs them
+    parts = [icm_cuda.pack_tables_int8(bank.mip[i:i + 16],
+                                       bank.probs[i:i + 16], depth=bank.depth)
+             for i in range(0, m, 16)]
+    tables8 = tuple(torch.from_numpy(np.concatenate(
+        [pt[j] for pt in parts])).to(DEVICE) for j in (0, 1))
+    assert torch.equal(tables8[0], lm)  # the same level tables
+    results = {}
+    for name, tables, kw, strands_list in (
+            ("fixed16", (lm, pk), {}, (1, 2)),
+            ("int8", tables8, {"int8": True, "scale": parts[0][2]}, (1,))):
+        table_bytes = sum(x.numel() * x.element_size() for x in tables)
+        for strands in strands_list:
+            icm_cuda.reset_launches()
+            got = kernel(tables, strands, **kw)
+            torch.cuda.synchronize()
+            assert (icm_cuda.bank_walk_launches
+                    + icm_cuda.bank_walk_int8_launches) == 1
+            want = twin(tables, strands, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"bank_walk {name} x {strands} strands "
+                                     f"differs from its twin ({err})")
+            assert bool(torch.isfinite(got).all()) and bool((got <= 0).all())
+            ms = cuda_ms(lambda: kernel(tables, strands, **kw), reps=11)
+            plain_ms = cuda_ms(lambda: twin(tables, strands, **kw), reps=3)
+            lv = sum(levels[:strands])
+            walks = strands * m * positions
+            ops = lv * K2_OPS_PER_LEVEL + walks * K2_OPS_PER_WALK
+            bound_ms, bound_by = bound(table_bytes + io_bytes, ops)
+            log(f"K2 bank_walk {name}, {strands} strand(s), vs twin at "
+                f"B=512 L=702 M={m} depth={bank.depth}: bitwise equal; "
+                f"kernel {ms:.4f} ms (median of 11), twin {plain_ms:.4f} ms "
+                f"(median of 3), CUDA events; "
+                f"{strands * model_mbp / (ms / 1e3):.1f} model-Mbp/s; bound "
+                f"{bound_ms:.4f} ms by {bound_by} ({table_bytes / 1e6:.1f} MB "
+                f"of tables, {ops / 1e9:.3f} G integer instructions: {walks} "
+                f"walks entering {lv} levels) [{gpu_line()}]")
+            results[name, strands] = {"max_abs_err": err, "ms": ms,
+                                      "plain_ms": plain_ms,
+                                      "bound_ms": bound_ms,
+                                      "bound_by": bound_by,
+                                      "library_ms": None}
+    # the main path runs the fixed16 kernel on both strands at once
+    return ({"name": "bank_walk", "route": "cuda",
+             "source": "glimmer_mg_torch/csrc/bank_walk.cu",
+             "replaces": "glimmer_mg_tpu/ops/icm_pallas.py:201",
+             **results["fixed16", 2]},
+            {"name": "bank_walk_int8", "route": "cuda",
+             "source": "glimmer_mg_torch/csrc/bank_walk.cu",
+             "replaces": "glimmer_mg_tpu/ops/icm_pallas.py:251",
+             **results["int8", 1]})
 
 
 @contextlib.contextmanager
@@ -542,7 +714,7 @@ def classify_warm(fa, icm_dir, root, n_reads, bp):
     out = os.path.join(root, "classify_warm")
     os.makedirs(out)
     stages = [(phymm.PhymmBank, "__init__", "bank_read_pack_upload", True),
-              (icm_cuda, "bank_score_reads_kernel", "bank_walk", True),
+              (icm_cuda, "bank_score_both_strands", "bank_walk", True),
               (phymm, "write_raw_phymm_output", "raw_file", False),
               (phymm, "write_results_table", "results_file", False)]
     with wrapped_parts(stages) as parts:
@@ -650,7 +822,7 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f} s")
 
         record = sixframe_phase(gd, genomes, args.seed)
-        k2_record = bankwalk_phase(bank, genomes, args.seed)
+        k2_record, k2_int8_record = bankwalk_phase(bank, genomes, args.seed)
 
         reads, cmap = sample_reads(genomes, args.reads, args.seed + 3)
         # pass 1 (cold: model construction, bank build) with the counts
@@ -711,20 +883,23 @@ def main(argv=None):
 
         _k1, k2_launches, fa = pipeline_phase(root, icm_dir, gd, bank, reads,
                                               cmap, args.check)
+        k2_int8_launches = icm_cuda.bank_walk_int8_launches
         del bank
         classify_warm(fa, icm_dir, root, len(reads),
                       sum(len(s) for _h, s in reads))
         pipeline_warm(fa, icm_dir, root)
 
-    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-           or m.startswith(("glimmer_mg_tpu.ops", "glimmer_mg_tpu.parallel"))]
-    assert not bad, f"JAX modules were loaded: {bad[:5]}"
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
+    assert not bad, f"JAX or JAX package modules were loaded: {bad[:5]}"
     record["launches"] = launches
     k2_record["launches"] = k2_launches
+    k2_int8_record["launches"] = k2_int8_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (record, k2_record)]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(gpu_line())
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in
+                                  (record, k2_record, k2_int8_record)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

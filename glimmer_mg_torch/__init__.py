@@ -1,10 +1,13 @@
 """glimmer_mg_torch: PyTorch/CUDA port of glimmer_mg_tpu's per-read gene prediction and Phymm classification.
 
-The JAX package ``glimmer_mg_tpu`` is the reference. This package reuses
-its JAX-free host layers (``models``, ``io``, ``engine.orfs``,
-``engine.events``, ``engine.glimmer3``, the host half of
-``engine.glimmer_mg``, ``pipeline.train_all``, ``utils``) and replaces the
-device path:
+The JAX package ``glimmer_mg_tpu`` is the reference; this package imports
+nothing of it. Its host layers are copies of the JAX package's JAX-free
+modules, in the same layout: ``utils``, ``models``, ``io``,
+``engine.orfs``, ``engine.events``, ``engine.glimmer3``, ``engine.mg_host``
+(the host half of ``engine.glimmer_mg``), ``native`` (the C++ per-read
+and glimmer3 engine, built with g++ into ``build/`` at first use) and
+``pipeline.train_all`` with the training stages it runs. The device path
+is the port's own:
 
   ops/icm_score.py      plain PyTorch ICM walks: the exact walk and the
                         twins of both kernels

@@ -97,7 +97,8 @@ def lib() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             cdll.gmt_six_frame.argtypes = [p] * 9 + [i] * 8 + [p]
             cdll.gmt_six_frame.restype = i
-            cdll.gmt_bank_walk.argtypes = [p] * 5 + [i] * 7 + [p]
+            cdll.gmt_bank_walk.argtypes = ([p] * 7 + [i] * 9
+                                           + [ctypes.c_float, p])
             cdll.gmt_bank_walk.restype = i
             _LIB = cdll
         return _LIB

@@ -3,8 +3,8 @@
 Counterpart of the device half of ``glimmer_mg_tpu.engine.glimmer_mg``
 (``_device_dp_chunk``, ``run_glimmer_mg``, ``run_glimmer_mg_classes``).
 The host half (Models, the exact per-read host engine, output formatting,
-the classes emission order) is imported from the JAX package, which keeps
-its JAX imports out of those functions.
+the classes emission order) is the port's own copy in ``engine.glimmer3``
+and ``engine.mg_host``.
 
 Routing is explicit and counted in ``counters``:
   * device_reads: reads predicted on ``device`` (six-frame kernel, frontend,
@@ -28,16 +28,15 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from glimmer_mg_tpu.engine import orfs as orf_mod
-from glimmer_mg_tpu.engine.glimmer3 import Models
-from glimmer_mg_tpu.engine.glimmer_mg import (
+from ..models import dna, icm as icm_mod
+from ..ops import device_predict as dpk
+from ..ops import icm_cuda
+from . import orfs as orf_mod
+from .glimmer3 import Models
+from .mg_host import (
     _bucket, _lru_put, _predict_read_with_models, _stable_tag,
     classes_emission_order, format_predict_mg,
 )
-from glimmer_mg_tpu.models import dna, icm as icm_mod
-
-from ..ops import device_predict as dpk
-from ..ops import icm_cuda
 
 __all__ = ["run_glimmer_mg", "run_glimmer_mg_classes", "format_predict_mg",
            "counters", "reset_counters"]
@@ -181,10 +180,10 @@ def classes_models(classes, n, genome_data, *, parsed, user_icm, user_gc,
     The same construction as the JAX package's run_glimmer_mg_classes,
     with the pure-Python log_add loop for the length mixture.
     """
-    from glimmer_mg_tpu.engine.glimmer3 import set_ignore_score_len
-    from glimmer_mg_tpu.io import features_file
-    from glimmer_mg_tpu.io.genome_data import STOP_CODONS_BY_CODE
-    from glimmer_mg_tpu.utils.mathutils import log_add
+    from ..io import features_file
+    from ..io.genome_data import STOP_CODONS_BY_CODE
+    from ..utils.mathutils import log_add
+    from .glimmer3 import set_ignore_score_len
 
     if user_icm is not None:
         gene_icm = user_icm
@@ -290,7 +289,7 @@ def classes_models(classes, n, genome_data, *, parsed, user_icm, user_gc,
 
 def run_glimmer_mg_classes(
     sequences,  # list of (header, seq)
-    genome_data,  # glimmer_mg_tpu.io.genome_data.GenomeData
+    genome_data,  # io.genome_data.GenomeData
     classifications: dict,  # header prefix -> [class strings]
     *,
     device,
@@ -315,8 +314,8 @@ def run_glimmer_mg_classes(
 
     ``host_engine=True`` serves every read with the exact host engine, the
     reference the device path is held to."""
-    from glimmer_mg_tpu.engine.glimmer3 import gc_fraction
-    from glimmer_mg_tpu.io import features_file
+    from ..io import features_file
+    from .glimmer3 import gc_fraction
 
     device = _check_device(device)
     if allow_indels and allow_subs:
@@ -410,10 +409,8 @@ def run_glimmer_mg(
     """glimmer-mg with a user ICM (-m mode), predicted on ``device``.
     Yields (header, [TracedGene]). ``host_engine=True`` serves every read
     with the exact host engine."""
-    from glimmer_mg_tpu.engine.glimmer3 import (
-        gc_fraction, set_ignore_score_len,
-    )
-    from glimmer_mg_tpu.io import features_file
+    from ..io import features_file
+    from .glimmer3 import gc_fraction, set_ignore_score_len
 
     device = _check_device(device)
     if allow_indels and allow_subs:

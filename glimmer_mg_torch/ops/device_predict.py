@@ -48,7 +48,7 @@ def _codon_tables(patterns):
     Index = 16*b0 + 4*b1 + b2 (b0 = first base); index 64 = the
     partial-codon sentinel (always false / -1).
     """
-    from glimmer_mg_tpu.models import dna
+    from ..models import dna
 
     masks_of = np.array([1, 2, 4, 8], dtype=np.int32)
     codes = np.arange(64)
@@ -453,8 +453,8 @@ def finish_genes(outs, n_reads: int):
     """Host-side tail of Trace_Back: reverse traceback order and fix up
     final 1-based coordinates (glimmer3.cc:1692-1759). Returns
     (list[list[TracedGene]], overflow mask)."""
-    from glimmer_mg_tpu.engine.events import TracedGene
-    from glimmer_mg_tpu.engine.glimmer_mg import Error
+    from ..engine.events import TracedGene
+    from ..engine.mg_host import Error
 
     (g_id, g_stop, g_len, g_sign, g_trunc, g_score, g_epos, g_etyp,
      cnt, n_events) = outs

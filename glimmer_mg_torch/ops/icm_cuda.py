@@ -3,10 +3,14 @@
   * ``mg_six_frame`` runs ``csrc/six_frame.cu``, the counterpart of
     ``glimmer_mg_tpu.ops.icm_pallas.mg_six_frame_pallas`` (per-read
     prediction); its twin is ``ops.icm_score.mg_six_frame_batch``.
-  * ``bank_score_reads_kernel`` runs ``csrc/bank_walk.cu``, the counterpart
-    of ``icm_pallas.bank_score_reads_pallas`` (Phymm classification), over
-    the tables of ``pack_tables``; its twin is
+  * ``bank_score_reads_kernel`` runs ``csrc/bank_walk.cu`` on one strand,
+    the counterpart of ``icm_pallas.bank_score_reads_pallas`` (Phymm
+    classification), over the 16-bit tables of ``pack_tables`` or, with
+    ``int8=True``, the 8-bit tables of ``pack_tables_int8``; its twin is
     ``ops.icm_score.bank_score_reads_packed``.
+    ``bank_score_both_strands`` runs the same kernel on a read batch and
+    its reverse complements in one launch and returns the per-(read,
+    model) max, the scores of ``classify_step_pallas``.
 
 CUDA tensors go to the kernel (or the wrapper raises); CPU tensors go to
 the plain PyTorch twin, which the kernel matches bitwise. There is no
@@ -24,17 +28,22 @@ LANES = 128
 # fixed-point scale of the packed bank tables: 16-bit signed, range
 # [-128, 0], quantization step 1/512 after round-to-nearest
 FIXED_SCALE = 256.0
+# deepest bank walk: its (model, frame) table must fit a block's shared
+# memory (csrc/bank_walk.cu)
+MAX_BANK_DEPTH = 7
 
-# Kernel launches (plain counts; reset by callers): mg_six_frame's and
-# bank_score_reads_kernel's.
+# Kernel launches (plain counts; reset by callers): mg_six_frame's, and
+# the bank walk's over 16-bit and over 8-bit tables (either entry point).
 launches = 0
 bank_walk_launches = 0
+bank_walk_int8_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, bank_walk_launches
+    global launches, bank_walk_launches, bank_walk_int8_launches
     launches = 0
     bank_walk_launches = 0
+    bank_walk_int8_launches = 0
 
 
 def _level_rows(depth: int) -> list[int]:
@@ -91,6 +100,50 @@ def pack_tables(bank_mip: np.ndarray, bank_probs: np.ndarray, depth: int = 7):
     # [m, p, rows, 2 pairs, lanes] -> [m, p, rows*2, lanes]
     packed = packed.reshape(m, p, rows * 2, LANES)
     return level_mip, packed
+
+
+def pack_tables_int8(bank_mip: np.ndarray, bank_probs: np.ndarray,
+                     depth: int = 7, scale: float = 8.0):
+    """8-bit variant of :func:`pack_tables`: FOUR int8 fixed-point
+    log-probs per int32 (one node's 4 bases in one lane entry), halving
+    the prob-table rows (342 -> 171); numpy, the same tables as
+    ``glimmer_mg_tpu.ops.icm_pallas.pack_tables_int8``.
+
+    Range [-128/scale, 0] with quantization step 1/scale (round-to-
+    nearest error <= 1/(2*scale) = 1/16 per base at the default).
+    Returns (level_mip (M, P, LR, 128) int32, probs_pk (M, P, rows, 128)
+    int32, scale).
+    """
+    m, p, n = bank_mip.shape
+    rows = (n + LANES - 1) // LANES
+    pad_n = rows * LANES
+
+    lr = _level_rows(depth)
+    level_mip = np.full((m, p, sum(lr), LANES), -1, dtype=np.int32)
+    off = 0
+    for k, rk in enumerate(lr):
+        base = (4**k - 1) // 3
+        cnt = min(4**k, max(0, n - base))
+        flat = np.full((m, p, rk * LANES), -1, dtype=np.int32)
+        flat[:, :, :cnt] = bank_mip[:, :, base : base + cnt].astype(np.int32)
+        level_mip[:, :, off : off + rk] = flat.reshape(m, p, rk, LANES)
+        off += rk
+
+    probs_eff = np.array(bank_probs, dtype=np.float32)
+    parent = np.maximum(0, (np.arange(n) - 1) // 4)
+    mi, pi, ni = np.nonzero(bank_mip == -2)
+    probs_eff[mi, pi, ni] = probs_eff[mi, pi, parent[ni]]
+
+    probs_pad = np.zeros((m, p, pad_n, 4), dtype=np.float32)
+    probs_pad[:, :, :n] = probs_eff
+    probs_t = probs_pad.reshape(m, p, rows, LANES, 4).transpose(0, 1, 2, 4, 3)
+    probs_t = np.maximum(probs_t, np.float32(-128.0 / scale))
+    q = np.clip(np.rint(probs_t * scale), -128, 0).astype(np.int64) & 0xFF
+    packed = (
+        q[:, :, :, 0] | (q[:, :, :, 1] << 8) | (q[:, :, :, 2] << 16)
+        | (q[:, :, :, 3] << 24)
+    ).astype(np.uint32).astype(np.int32)
+    return level_mip, packed.reshape(m, p, rows, LANES), scale
 
 
 def _check(name, t, dtypes, ndim, device):
@@ -181,11 +234,14 @@ def mg_six_frame(gene_mip, gene_probs, indep_mip, indep_probs, reads, lengths,
     return gene, ind
 
 
-def _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth):
+def _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth,
+                     int8):
     """Shapes and index ranges the bank-walk kernel trusts: a walk of
-    ``depth`` levels reads only the level rows and prob rows the tables
-    hold, lengths lie in [0, L], the context fits 30 bits and an int32 sum
-    of int16 values cannot overflow. One host sync for the lengths."""
+    ``depth`` (<= 7, the deepest whose tables fit a block's shared memory)
+    levels reads only the level rows and prob rows the tables hold,
+    lengths lie in [0, L], bases in [0, 3], the context fits 30 bits and
+    an int32 sum of int16 values cannot overflow. One host sync for the
+    value checks."""
     if level_mip.dim() != 4 or probs_pk.dim() != 4:
         raise ValueError("level_mip and probs_pk must be 4-D")
     m, p, lr, lanes = level_mip.shape
@@ -194,7 +250,7 @@ def _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth):
                          f"{tuple(level_mip.shape)}")
     if (probs_pk.shape[0] != m or probs_pk.shape[1] != 3
             or probs_pk.shape[3] != LANES):
-        raise ValueError("probs_pk must be (M, 3, R2, 128) matching level_mip")
+        raise ValueError("probs_pk must be (M, 3, R, 128) matching level_mip")
     if reads.dim() != 2 or lengths.shape != (reads.shape[0],):
         raise ValueError("reads must be (B, L) and lengths (B,)")
     if reads.shape[1] % 3 != 0:
@@ -203,55 +259,102 @@ def _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth):
         raise ValueError("reads must be shorter than 65,536 bases")
     if model_len < 1 or model_len - 1 > 15:
         raise ValueError("model_len must be in [1, 16] (30-bit context)")
-    if depth < 0 or sum(_level_rows(depth)) > lr:
+    if depth < 0 or depth > MAX_BANK_DEPTH:
+        raise ValueError(f"depth must be in [0, {MAX_BANK_DEPTH}]")
+    if sum(_level_rows(depth)) > lr:
         raise ValueError(f"level_mip has {lr} rows, too few for depth {depth}")
     nodes = (4 ** (depth + 1) - 1) // 3
-    if probs_pk.shape[2] < 2 * ((nodes + LANES - 1) // LANES):
+    need = (1 if int8 else 2) * ((nodes + LANES - 1) // LANES)
+    if probs_pk.shape[2] < need:
         raise ValueError(f"probs_pk has {probs_pk.shape[2]} rows, too few "
                          f"for depth {depth}")
-    if bool(((lengths < 0) | (lengths > reads.shape[1])).any()):
-        raise ValueError("lengths must lie in [0, L]")
+    if bool(((lengths < 0) | (lengths > reads.shape[1])).any()
+            | ((reads < 0) | (reads > 3)).any()):
+        raise ValueError("lengths must lie in [0, L] and bases in [0, 3]")
 
 
-def bank_score_reads_kernel(level_mip, probs_pk, reads, lengths,
-                            model_len: int = 12, depth: int = 7):
-    """(B, M) f32 total log-prob of each read under each bank ICM, frame 0
-    at base 0, cycling, over the 16-bit tables of :func:`pack_tables`.
-
-    One strand per call, like ``bank_score_reads_pallas``. level_mip
-    (M, 3, LR, 128) int32, probs_pk (M, 3, R2, 128) int32, reads (B, L)
-    int32 with L % 3 == 0, lengths (B,) int32.
-    """
+def _bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth, int8,
+               scale, strands):
+    """Check the arguments and launch ``csrc/bank_walk.cu`` on CUDA
+    tensors; (B, M) f32."""
     device = reads.device
-    if device.type == "cpu":
-        _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len,
-                         depth)
-        return icm_score.bank_score_reads_packed(
-            level_mip, probs_pk, reads, lengths, model_len, depth)
-    if device.type != "cuda":
-        raise ValueError(f"bank_score_reads_kernel: unsupported device "
-                         f"{device}")
-
     _check("level_mip", level_mip, (torch.int32,), 4, device)
     _check("probs_pk", probs_pk, (torch.int32,), 4, device)
     _check("reads", reads, (torch.int32,), 2, device)
     _check("lengths", lengths, (torch.int32,), 1, device)
-    _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth)
+    _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth,
+                     int8)
     m, _p, lr, _lanes = level_mip.shape
     b, l = reads.shape
-    if m > 65535:
-        raise ValueError("at most 65,535 models per call (grid y)")
+    if 3 * m > 65535:
+        raise ValueError("at most 21,845 models per call (grid y)")
+    if level_mip.data_ptr() % 16 or probs_pk.data_ptr() % 16:
+        raise ValueError("tables must be 16-byte aligned")
 
     from .. import _build
 
+    fields = torch.empty((strands, 3, b, l // 3), dtype=torch.int32,
+                         device=device)
+    partial = torch.empty((strands, 3, b, m), dtype=torch.int32,
+                          device=device)
     out = torch.empty((b, m), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _build.lib().gmt_bank_walk(
         level_mip.data_ptr(), probs_pk.data_ptr(), reads.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, l, m, lr, probs_pk.shape[2],
-        model_len, depth, stream)
+        lengths.data_ptr(), fields.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), b, l, m, lr, probs_pk.shape[2], model_len, depth,
+        strands, int(int8), 1.0 / scale, stream)
     if err != 0:
         raise RuntimeError(f"bank_walk kernel launch failed (cudaError {err})")
-    global bank_walk_launches
-    bank_walk_launches += 1
+    global bank_walk_launches, bank_walk_int8_launches
+    if int8:
+        bank_walk_int8_launches += 1
+    else:
+        bank_walk_launches += 1
     return out
+
+
+def _bank_route(name, reads):
+    if reads.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {reads.device}")
+    return reads.device.type == "cuda"
+
+
+def bank_score_reads_kernel(level_mip, probs_pk, reads, lengths,
+                            model_len: int = 12, depth: int = 7,
+                            int8: bool = False, scale: float = FIXED_SCALE):
+    """(B, M) f32 total log-prob of each read under each bank ICM, frame 0
+    at base 0, cycling, over the 16-bit tables of :func:`pack_tables` or,
+    with ``int8``, the 8-bit tables of :func:`pack_tables_int8` (pass the
+    ``scale`` it returns).
+
+    One strand per call, like ``bank_score_reads_pallas``. level_mip
+    (M, 3, LR, 128) int32, probs_pk (M, 3, R, 128) int32, reads (B, L)
+    int32 with L % 3 == 0, lengths (B,) int32.
+    """
+    if _bank_route("bank_score_reads_kernel", reads):
+        return _bank_walk(level_mip, probs_pk, reads, lengths, model_len,
+                          depth, int8, scale, 1)
+    _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth,
+                     int8)
+    return icm_score.bank_score_reads_packed(
+        level_mip, probs_pk, reads, lengths, model_len, depth, int8=int8,
+        scale=scale)
+
+
+def bank_score_both_strands(level_mip, probs_pk, reads, lengths,
+                            model_len: int = 12, depth: int = 7,
+                            int8: bool = False, scale: float = FIXED_SCALE):
+    """(B, M) f32 max of :func:`bank_score_reads_kernel` over the reads and
+    their reverse complements (``icm_score.revcomp_reads``): one launch on
+    CUDA tensors, the twin on both strands on CPU tensors."""
+    if _bank_route("bank_score_both_strands", reads):
+        return _bank_walk(level_mip, probs_pk, reads, lengths, model_len,
+                          depth, int8, scale, 2)
+    _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth,
+                     int8)
+    rc = icm_score.revcomp_reads(reads, lengths)
+    return torch.maximum(
+        *(icm_score.bank_score_reads_packed(
+            level_mip, probs_pk, r, lengths, model_len, depth, int8=int8,
+            scale=scale) for r in (reads, rc)))

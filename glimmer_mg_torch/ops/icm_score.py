@@ -16,8 +16,11 @@ Two paths use it:
   * Phymm classification: ``bank_score_reads``, the exact f32 walk, and
     ``bank_score_reads_packed``, the twin of the bank-walk kernel
     ``csrc/bank_walk.cu`` over the 16-bit fixed-point tables of
-    ``icm_cuda.pack_tables``. The twin sums integers, so it is bitwise
-    equal to the kernel and to the Pallas kernel while |score| < 65,536.
+    ``icm_cuda.pack_tables`` or the 8-bit ones of
+    ``icm_cuda.pack_tables_int8``. The twin sums integers, so it is
+    bitwise equal to the kernel, and to the Pallas kernel while every
+    partial f32 sum of the scaled values is exact (|score| < 65,536 for
+    16 bits, always for 8 bits at scale 8).
 
 ``ops/icm_cuda.py`` calls the twins for CPU tensors.
 """
@@ -133,21 +136,27 @@ def bank_score_reads(bank_mip, bank_probs, reads, lengths, model_len: int,
 
 
 def bank_score_reads_packed(level_mip, probs_pk, reads, lengths,
-                            model_len: int, depth: int):
+                            model_len: int, depth: int, int8: bool = False,
+                            scale: float = 256.0):
     """(B, M) fixed-point total log-prob of each read under each bank ICM:
     the twin of the bank-walk kernel (``csrc/bank_walk.cu``) and of the
     Pallas ``_walk_kernel`` plus its wrapper's masked sum.
 
-    level_mip (M, 3, LR, 128) int32 and probs_pk (M, 3, R2, 128) int32 are
-    ``icm_cuda.pack_tables`` output; reads (B, L) int, lengths (B,).
-    Position i uses frame i % 3 and walks ``depth`` levels, level k
-    reading ``level_mip[m, f, off_k + (o >> 7), o & 127]`` with
-    ``o = node - (4^k - 1)/3``; its value is the int16 half
-    ``last & 1`` of ``probs_pk[m, f, (node >> 7)*2 + (last >> 1),
-    node & 127]``. Positions at or past a read's length are masked, the
-    int16 values summed as integers and scaled once by 1/256.
+    level_mip (M, 3, LR, 128) int32 and probs_pk are ``icm_cuda.
+    pack_tables`` output (probs_pk (M, 3, R2, 128) int32, two int16
+    values per entry) or, with ``int8``, ``icm_cuda.pack_tables_int8``
+    output (probs_pk (M, 3, R, 128) int32, four int8 values per entry);
+    reads (B, L) int, lengths (B,). Position i uses frame i % 3 and walks
+    ``depth`` levels, level k reading ``level_mip[m, f, off_k + (o >> 7),
+    o & 127]`` with ``o = node - (4^k - 1)/3``. Its value is the int16
+    half ``last & 1`` of ``probs_pk[m, f, (node >> 7)*2 + (last >> 1),
+    node & 127]``, or with ``int8`` the byte ``last`` of
+    ``probs_pk[m, f, node >> 7, node & 127]``. Positions at or past a
+    read's length are masked, the values summed as integers and scaled
+    once by 1/scale (``icm_cuda.FIXED_SCALE`` for 16-bit tables, the
+    scale ``pack_tables_int8`` returns for 8-bit ones).
     """
-    from .icm_cuda import FIXED_SCALE, LANES, _level_rows
+    from .icm_cuda import LANES, _level_rows
 
     m, p, lr, _lanes = level_mip.shape
     r2 = probs_pk.shape[2]
@@ -161,6 +170,7 @@ def bank_score_reads_packed(level_mip, probs_pk, reads, lengths,
     frame64 = frame.long()
     lo = (seq >> 1) * LANES
     high_half = (seq & 1) == 1
+    byte_shift = 8 * seq
     out = torch.empty((seq.shape[0], m), dtype=torch.float32,
                       device=seq.device)
     for k in range(m):
@@ -176,13 +186,28 @@ def bank_score_reads_packed(level_mip, probs_pk, reads, lengths,
             node = torch.where(done | ~avail, node, 4 * node + b + 1)
             done = done | ~avail
         ptab = (k * p + frame64) * (r2 * LANES)
-        acc = pk_flat[ptab + (node >> 7) * (2 * LANES) + lo
-                      + (node & (LANES - 1))]
-        val = torch.where(high_half, acc >> 16,
-                          ((acc & 0xFFFF) ^ 0x8000) - 0x8000)
+        if int8:
+            acc = pk_flat[ptab + node]
+            byte = (acc >> byte_shift) & 0xFF
+            val = (byte ^ 0x80) - 0x80
+        else:
+            acc = pk_flat[ptab + (node >> 7) * (2 * LANES) + lo
+                          + (node & (LANES - 1))]
+            val = torch.where(high_half, acc >> 16,
+                              ((acc & 0xFFFF) ^ 0x8000) - 0x8000)
         total = torch.where(valid, val, 0).sum(dim=1)
-        out[:, k] = total.to(torch.float32) * (1.0 / FIXED_SCALE)
+        out[:, k] = total.to(torch.float32) * (1.0 / scale)
     return out
+
+
+def revcomp_reads(reads, lengths):
+    """Reverse complement of padded reads (the pad stays at the tail)."""
+    l = reads.shape[1]
+    i = torch.arange(l, device=reads.device)[None, :]
+    lens = lengths.to(torch.int64)[:, None]
+    comp = 3 - reads  # a<->t, c<->g in index space
+    rc = torch.gather(comp, 1, (lens - 1 - i) % l)
+    return torch.where(i < lens, rc, 0)
 
 
 def _banked_logprob(mip_flat, probs_flat, num_nodes: int, periodicity: int,

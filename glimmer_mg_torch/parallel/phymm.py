@@ -5,8 +5,9 @@ The reference pipeline (scripts/phymm_par.py + scripts/scoreReadsGlim.pl)
 fans out processes, each running `simple-score -N <icm>` over all reads
 forward and reverse-complement, keeping the per-read max, then merges
 score matrices from files. Here the whole bank is a stack of tables on the
-device, scored in one launch per read batch and strand by the bank-walk
-kernel (``csrc/bank_walk.cu``); the "merge" is the per-read argmax.
+device, scored in one launch per read batch, both strands, by the
+bank-walk kernel (``csrc/bank_walk.cu``); the "merge" is the per-read
+argmax.
 
 File-format parity: writes and reads the reference's rawPhymmOutput_*.txt
 (BEGIN_ICM_LIST / BEGIN_READID_LIST / BEGIN_DATA_MATRIX, one row per ICM;
@@ -22,9 +23,8 @@ import os
 import numpy as np
 import torch
 
-from glimmer_mg_tpu.models import icm as icm_mod
-
 from ..engine.glimmer_mg import _check_device
+from ..models import icm as icm_mod
 from ..ops import icm_cuda, icm_score
 from . import classify as pclassify
 
@@ -219,8 +219,8 @@ def classify_file(sequence_file, icm_dir, out_dir=".", *, device,
                   taxonomy=None, batch: int = 512):
     """Full classification step on ``device``: score + write the raw
     matrix + the results table. Returns (icm_paths, read_ids, scores)."""
-    from glimmer_mg_tpu.io.fasta import read_fasta
-    from glimmer_mg_tpu.utils.observe import ProgressLog, vlog
+    from ..io.fasta import read_fasta
+    from ..utils.observe import ProgressLog, vlog
 
     recs = list(read_fasta(sequence_file))
     read_ids = [h.split()[0] for h, _ in recs]

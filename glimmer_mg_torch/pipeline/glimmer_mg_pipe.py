@@ -24,13 +24,12 @@ import os
 
 import numpy as np
 
-from glimmer_mg_tpu.io.fasta import read_fasta
-from glimmer_mg_tpu.io.genome_data import GenomeData, parse_classes
-from glimmer_mg_tpu.utils.observe import StageTimers
-
 from ..engine import glimmer_mg as mg
 from ..engine.glimmer_mg import _check_device
+from ..io.fasta import read_fasta
+from ..io.genome_data import GenomeData, parse_classes
 from ..parallel import phymm
+from ..utils.observe import StageTimers
 
 
 def informative_genomes(icm_dir: str, min_adj: float = 7.0) -> set[str]:
@@ -151,7 +150,7 @@ def run_pipeline(
 
     qualities = None
     if quality_file:
-        from glimmer_mg_tpu.io.fasta import read_qual
+        from ..io.fasta import read_qual
 
         qualities = {h.split()[0]: q for h, q in read_qual(quality_file)}
 

@@ -3,15 +3,18 @@
 Needs an NVIDIA GPU with nvcc (marker ``cuda``); skipped elsewhere. Run on
 a GPU machine with ``python -m pytest tests/test_torch_bank_walk_cuda.py
 -q``. The kernel must be BITWISE equal to the twin (on the card and on the
-CPU) at small and odd shapes: one read, L 3, length 0, banks of 1 and 5
-models, pruned nodes; out-of-range arguments must raise before a launch.
+CPU) at small and odd shapes, one strand, both strands in one launch and
+8-bit tables: one read, L 3, length 0, banks of 1 and 5 models, pruned
+nodes, B not a multiple of the 32 warps of a block and past the 512 reads
+of one block, walks shallower than 7 levels; out-of-range arguments must
+raise before a launch.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from glimmer_mg_tpu.models import dna, icm_train
+from glimmer_mg_torch.models import dna, icm_train
 from glimmer_mg_torch.ops import icm_cuda, icm_score
 from glimmer_mg_torch.parallel import classify
 
@@ -27,20 +30,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(n_models, b, l, seed=2):
+def _case(n_models, b, l, seed=2, int8=False, pack_depth=7):
     rng = np.random.default_rng(seed)
     icms = []
     for k in range(n_models):
         seqs = [dna.encode(_gene_like(rng, 150, 0.3 + 0.08 * k))
                 for _ in range(8)]
-        icm = icm_train.train_icm(seqs, model_len=12, depth=7)
+        icm = icm_train.train_icm(seqs, model_len=12, depth=pack_depth)
         if k % 2 == 1:  # prune 5% of the nodes of every other model
             cut = rng.random(icm.mip.shape) < 0.05
             cut[:, 0] = False
             icm.mip[cut] = -2
         icms.append(icm)
     mip, probs = icm_score.stack_bank(icms)
-    lm, pk = icm_cuda.pack_tables(mip, probs)
+    if int8:
+        lm, pk, _scale = icm_cuda.pack_tables_int8(mip, probs, pack_depth)
+    else:
+        lm, pk = icm_cuda.pack_tables(mip, probs, pack_depth)
     reads = rng.integers(0, 4, (b, l), dtype=np.int32)
     lengths = rng.integers(0, l + 1, b).astype(np.int32)
     lengths[0] = l
@@ -48,24 +54,65 @@ def _case(n_models, b, l, seed=2):
         lengths[1:3] = (0, min(l, 11))
     for r, n in enumerate(lengths):
         reads[r, n:] = 0
-    return [torch.from_numpy(a) for a in (lm, pk, reads, lengths)]
+    return [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (lm, pk, reads, lengths)]
 
 
-@pytest.mark.parametrize("n_models,b,l", [(1, 1, 3), (5, 1, 702),
-                                          (1, 37, 126), (5, 64, 702),
-                                          (5, 9, 3)])
-def test_kernel_bitwise_equals_twin(cuda, n_models, b, l):
-    cpu = _case(n_models, b, l)
+def _same(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+SHAPES = [(1, 1, 3), (5, 1, 702), (1, 37, 126), (5, 64, 702), (5, 9, 3),
+          (2, 600, 96)]
+
+
+@pytest.mark.parametrize("n_models,b,l", SHAPES)
+@pytest.mark.parametrize("fmt", ["fixed16", "int8"])
+def test_kernel_bitwise_equals_twin(cuda, n_models, b, l, fmt):
+    int8 = fmt == "int8"
+    kw = {"int8": True, "scale": 8.0} if int8 else {}
+    cpu = _case(n_models, b, l, int8=int8)
     t = [x.to(cuda) for x in cpu]
     icm_cuda.reset_launches()
-    got = icm_cuda.bank_score_reads_kernel(*t, 12, 7)
+    got = icm_cuda.bank_score_reads_kernel(*t, 12, 7, **kw)
+    torch.cuda.synchronize()
+    assert (icm_cuda.bank_walk_int8_launches, icm_cuda.bank_walk_launches) \
+        == ((1, 0) if int8 else (0, 1))
+    assert got.shape == (b, n_models) and got.dtype == torch.float32
+    want = icm_score.bank_score_reads_packed(*t, 12, 7, **kw)
+    assert _same(got, want)
+    want_cpu = icm_score.bank_score_reads_packed(*cpu, 12, 7, **kw)
+    assert _same(got.cpu(), want_cpu)
+
+
+@pytest.mark.parametrize("n_models,b,l", SHAPES)
+def test_both_strands_bitwise_equals_twin(cuda, n_models, b, l):
+    """One launch over both strands equals the max of the twin over the
+    reads and their reverse complements, on the card and on the CPU."""
+    cpu = _case(n_models, b, l, seed=3)
+    t = [x.to(cuda) for x in cpu]
+    icm_cuda.reset_launches()
+    got = icm_cuda.bank_score_both_strands(*t, 12, 7)
     torch.cuda.synchronize()
     assert icm_cuda.bank_walk_launches == 1
-    assert got.shape == (b, n_models) and got.dtype == torch.float32
-    want = icm_score.bank_score_reads_packed(*t, 12, 7)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    want_cpu = icm_score.bank_score_reads_packed(*cpu, 12, 7)
-    assert torch.equal(got.cpu().view(torch.int32), want_cpu.view(torch.int32))
+    rc = icm_score.revcomp_reads(t[2], t[3])
+    want = torch.maximum(icm_score.bank_score_reads_packed(*t, 12, 7),
+                         icm_score.bank_score_reads_packed(t[0], t[1], rc,
+                                                           t[3], 12, 7))
+    assert _same(got, want)
+    assert _same(got.cpu(), icm_cuda.bank_score_both_strands(*cpu, 12, 7))
+
+
+@pytest.mark.parametrize("pack_depth,depth", [(7, 5), (4, 4), (2, 0)])
+@pytest.mark.parametrize("fmt", ["fixed16", "int8"])
+def test_shallow_walks_bitwise_equal_twin(cuda, pack_depth, depth, fmt):
+    int8 = fmt == "int8"
+    kw = {"int8": True, "scale": 8.0} if int8 else {}
+    cpu = _case(3, 40, 300, seed=4, int8=int8, pack_depth=pack_depth)
+    t = [x.to(cuda) for x in cpu]
+    got = icm_cuda.bank_score_both_strands(*t, 12, depth, **kw)
+    assert _same(got.cpu(),
+                 icm_cuda.bank_score_both_strands(*cpu, 12, depth, **kw))
 
 
 def test_classify_step_kernel_on_card_matches_cpu(cuda):
@@ -89,6 +136,11 @@ def test_wrapper_checks_types(cuda):
     bad[3] = t[3].cpu()
     with pytest.raises(ValueError):
         icm_cuda.bank_score_reads_kernel(*bad)
+    bad = list(t)
+    bad[2] = t[2].clone()
+    bad[2][0, 0] = 4
+    with pytest.raises(ValueError):
+        icm_cuda.bank_score_both_strands(*bad)
 
 
 @pytest.mark.parametrize("bad", BAD)
@@ -98,4 +150,6 @@ def test_wrapper_rejects_out_of_range(cuda, bad):
     icm_cuda.reset_launches()
     with pytest.raises(ValueError):
         icm_cuda.bank_score_reads_kernel(*args, **kw)
+    with pytest.raises(ValueError):
+        icm_cuda.bank_score_both_strands(*args, **kw)
     assert icm_cuda.bank_walk_launches == 0

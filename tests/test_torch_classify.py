@@ -1,10 +1,13 @@
 """Phymm classification walks of the port (CPU) against the JAX package.
 
-* ``icm_cuda.pack_tables`` equals ``icm_pallas.pack_tables``;
-* the bank-walk twin ``icm_score.bank_score_reads_packed`` and the port's
-  ``classify_step_kernel`` are BITWISE equal to the Pallas kernel
-  ``bank_score_reads_pallas`` in interpret mode (+ revcomp + max), argmax
-  identical; ``groups=1, e_block=128`` change only the TPU layout;
+* ``icm_cuda.pack_tables`` and ``pack_tables_int8`` equal
+  ``icm_pallas.pack_tables`` and ``pack_tables_int8``;
+* the bank-walk twin ``icm_score.bank_score_reads_packed`` (16-bit and
+  8-bit tables) and the port's ``classify_step_kernel`` are BITWISE equal
+  to the Pallas kernel ``bank_score_reads_pallas`` in interpret mode
+  (+ revcomp + max), argmax identical; ``groups=1, e_block=128`` change
+  only the TPU layout; the two-strand wrapper's CPU route is BITWISE
+  equal to ``classify_step_pallas`` run on that kernel;
 * the exact walk: ``per_base_logprob`` bitwise (a table read),
   ``score_string`` and ``classify_step`` within 1e-3 of JAX's f32 sums
   (another summation order), identical argmax where the top-2 margin
@@ -15,6 +18,8 @@
 Bank: three depth-7 ICMs trained from seeded gene-like sequences, one of
 them with 5% of its nodes pruned (mip -2) so walks end on pruned nodes.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -62,8 +67,16 @@ def case():
             e_block=128))
 
     fwd, rev = pallas(reads), pallas(rc)
+    lm8, pk8, scale8 = icm_pallas.pack_tables_int8(mip, probs)
+
+    def pallas8(r):
+        return np.asarray(icm_pallas.bank_score_reads_pallas(
+            lm8, pk8, r, lengths, 12, 7, interpret=True, groups=1,
+            e_block=128, int8=True, scale=scale8))
+
     return dict(mip=mip, probs=probs, lm=lm, pk=pk, reads=reads,
-                lengths=lengths, rc=rc, fwd=fwd, rev=rev)
+                lengths=lengths, rc=rc, fwd=fwd, rev=rev, lm8=lm8, pk8=pk8,
+                scale8=scale8, fwd8=pallas8(reads), rev8=pallas8(rc))
 
 
 def _t(*arrays):
@@ -85,6 +98,34 @@ def test_pack_tables_matches_jax(case):
     assert np.array_equal(np.concatenate([p[1] for p in parts]), pk)
 
 
+def test_pack_tables_int8_matches_jax(case):
+    lm, pk, scale = icm_cuda.pack_tables_int8(case["mip"], case["probs"])
+    assert lm.dtype == np.int32 and pk.dtype == np.int32
+    assert pk.shape == case["pk8"].shape and scale == case["scale8"] == 8.0
+    assert np.array_equal(lm, case["lm8"]) and np.array_equal(pk,
+                                                              case["pk8"])
+
+
+@pytest.mark.parametrize("strand", ["fwd", "rev"])
+def test_bank_walk_int8_twin_bitwise_vs_pallas(case, strand):
+    """The int8 branch: four int8 values per entry, picked by ``last``;
+    pruned nodes and a length-0 read included."""
+    reads = case["reads"] if strand == "fwd" else case["rc"]
+    t = _t(case["lm8"], case["pk8"], reads, case["lengths"])
+    got = tis.bank_score_reads_packed(*t, 12, 7, int8=True,
+                                      scale=case["scale8"])
+    assert got.dtype == torch.float32 and got.shape == (len(LENGTHS), 3)
+    want = case[strand + "8"]
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+    assert (want[LENGTHS.index(0)] == 0).all()
+    # the wrapper's CPU route is the twin; int8 launches count apart
+    icm_cuda.reset_launches()
+    got = icm_cuda.bank_score_reads_kernel(*t, 12, 7, int8=True,
+                                           scale=case["scale8"])
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+    assert icm_cuda.bank_walk_int8_launches == 0
+
+
 @pytest.mark.parametrize("strand", ["fwd", "rev"])
 def test_bank_walk_twin_bitwise_vs_pallas(case, strand):
     reads = case["reads"] if strand == "fwd" else case["rc"]
@@ -103,6 +144,24 @@ def test_classify_step_kernel_bitwise_vs_jax(case):
     assert np.array_equal(_bits(scores.numpy()), _bits(want))
     assert best.dtype == torch.int32
     assert np.array_equal(best.numpy(), np.argmax(want, axis=1))
+
+
+def test_both_strands_bitwise_vs_classify_step_pallas(case, monkeypatch):
+    """The two-strand wrapper's CPU route against JAX's
+    ``classify_step_pallas`` (its revcomp and max) on the Pallas kernel in
+    interpret mode."""
+    monkeypatch.setattr(icm_pallas, "bank_score_reads_pallas",
+                        functools.partial(icm_pallas.bank_score_reads_pallas,
+                                          interpret=True, groups=1,
+                                          e_block=128))
+    want, want_best = jcl.classify_step_pallas.__wrapped__(
+        case["lm"], case["pk"], case["reads"], case["lengths"], 12, 7)
+    icm_cuda.reset_launches()
+    got = icm_cuda.bank_score_both_strands(
+        *_t(case["lm"], case["pk"], case["reads"], case["lengths"]), 12, 7)
+    assert icm_cuda.bank_walk_launches == 0
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+    assert np.array_equal(got.argmax(dim=1).numpy(), np.asarray(want_best))
 
 
 def test_revcomp_and_pad_reads_match_jax(case):

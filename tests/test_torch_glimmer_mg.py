@@ -179,22 +179,23 @@ def test_cuda_request_without_gpu_raises(classes_case):
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
-    """With ``jax`` imports blocked, the port imports and predicts a few
-    reads on the CPU; it loads no JAX and no JAX-only module."""
+    """With ``jax`` and ``glimmer_mg_tpu`` imports blocked, the port
+    imports, trains an ICM with its own ``icm_train`` and predicts a few
+    reads on the CPU; it loads no module of either."""
     script = textwrap.dedent("""
         import sys
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is blocked")
+                if name.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu"):
+                    raise ImportError(name + " is blocked")
                 return None
 
         sys.meta_path.insert(0, Block())
         import numpy as np
         import glimmer_mg_torch
         from glimmer_mg_torch.engine import glimmer_mg as tmg
-        from glimmer_mg_tpu.models import dna, icm_train
+        from glimmer_mg_torch.models import dna, icm_train
         from tests._torch_common import _gene_like, overlap_dense_reads
 
         rng = np.random.default_rng(1)
@@ -204,9 +205,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         out = list(tmg.run_glimmer_mg(reads, gicm, device="cpu"))
         assert len(out) == 6 and tmg.counters["device_reads"] > 0, tmg.counters
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib")
-               or m.startswith(("glimmer_mg_tpu.ops",
-                                "glimmer_mg_tpu.parallel"))]
+               if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
         assert not bad, bad
         print("OK", sum(len(g) for _h, g in out))
     """)

@@ -11,7 +11,7 @@
   directory holding the port's raw file: byte-identical ``.class.txt``,
   ``.run1.predict`` and ``.predict``;
 * ``iterate >= 1`` and a CUDA request without a GPU raise; the new modules
-  import and classify with JAX blocked.
+  import and classify with JAX and the JAX package blocked.
 """
 
 import os
@@ -186,16 +186,17 @@ def test_iterate_and_cuda_without_gpu_raise(mg_db):
 
 
 def test_classification_imports_and_runs_without_jax(mg_db):
-    """With ``jax`` imports blocked, the classification and pipeline
-    modules import and classify on the CPU, loading no JAX-only module."""
+    """With ``jax`` and ``glimmer_mg_tpu`` imports blocked, the
+    classification and pipeline modules import and classify on the CPU,
+    loading no module of either."""
     root, icm_dir, _reads, _truth = mg_db
     script = textwrap.dedent(f"""
         import sys
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is blocked")
+                if name.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu"):
+                    raise ImportError(name + " is blocked")
                 return None
 
         sys.meta_path.insert(0, Block())
@@ -208,9 +209,7 @@ def test_classification_imports_and_runs_without_jax(mg_db):
             out_dir={str(root)!r}, device="cpu")
         assert scores.shape == (30, len(paths)), scores.shape
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib")
-               or m.startswith(("glimmer_mg_tpu.ops",
-                                "glimmer_mg_tpu.parallel"))]
+               if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
         assert not bad, bad
         print("OK", len(paths))
     """)
