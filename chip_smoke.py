@@ -12,8 +12,10 @@ Phases (any failure raises and exits non-zero):
      copies of the 4 trained ones, the same trees), 512 ICMs of depth 7;
   3. K1, the six-frame ICM walk kernel, against its plain PyTorch twin on
      the card at the prediction path's shapes (B 2,048 x L 768, 16 model
-     groups of depth-7 ICMs): bitwise equal; median times of both (CUDA
-     events);
+     groups of depth-7 ICMs): bitwise equal; median times (CUDA events)
+     of the wrapper call, of the kernel alone (device time) warm and
+     L2-cold, and of the twin; ptxas's registers and the block's shared
+     memory;
   4. K2, the Phymm bank-walk kernel, against its twin at one
      classification batch of the full bank (B 512 x L 702 x M 512), one
      strand and both strands in one launch: bitwise equal; median times of
@@ -75,11 +77,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64    # Hopper SM: 4 partitions x 16 INT32 lanes
 # integer instructions of the walks in the SASS (cuobjdump -sass, sm_90a)
 # of csrc/bank_walk.cu::walk_kernel<false, 7> and csrc/six_frame.cu::
-# six_frame_kernel<int16_t>: per level entered and per walk; for K1 also
-# the context of each (read, variant, position) at its least, a shift and
-# an or per base (the kernel's own build takes about 380)
+# six_frame_kernel<int16_t, 7>: per level entered and per walk. K1's
+# counts may only fall: a level issues 5 (its mut_info_pos from shared
+# memory), a walk's prob address 5 (gene) or 3 (null), so 4 a walk; a
+# position's context and stores take more than the 22 of the first
+# design's least context (a shift and an or per base), which stays
 K2_OPS_PER_LEVEL, K2_OPS_PER_WALK = 7, 22
-K1_OPS_PER_LEVEL, K1_OPS_PER_WALK, K1_OPS_PER_POSITION = 12, 26, 22
+K1_OPS_PER_LEVEL, K1_OPS_PER_WALK, K1_OPS_PER_POSITION = 5, 4, 22
 
 
 def log(msg):
@@ -267,11 +271,56 @@ def cuda_ms(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
+def kernel_ms(fn, cold=False):
+    """Device milliseconds of one launch of fn (a kernel launch with no
+    host sync): warm, the median over 7 runs of 20 launches back to back
+    between CUDA events (the host runs ahead, so the events see device
+    time only); cold, the median of 11 single launches, each after a
+    64 MB write and a ~0.1 ms device sleep that lets the host run ahead."""
+    import torch
+
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.int32, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for k in range(11 if cold else 7):
+        if cold:
+            flush.fill_(k)
+            torch.cuda._sleep(200_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(1 if cold else 20):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / (1 if cold else 20))
+    return sorted(times)[len(times) // 2]
+
+
+def ptxas_lines(source, kernel):
+    """ptxas's registers/shared-memory/spill lines of one kernel's
+    instantiations in the last build of ``source``."""
+    from glimmer_mg_torch import _build
+
+    lines = _build.build_log.get(source, "").splitlines()
+    out = []
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            name = line.split("'")[1]
+            used = [x.split("ptxas info    :")[-1].strip()
+                    for x in lines[k + 1:k + 4]
+                    if "Used" in x or "spill" in x]
+            out.append(f"{name}: {'; '.join(used)}")
+    return out
+
+
 def sixframe_phase(gd, genomes, seed):
     """K1 vs its twin at the main path's shapes; returns its record."""
     import numpy as np
     import torch
 
+    from glimmer_mg_torch import _build
     from glimmer_mg_torch.engine import glimmer_mg as tmg
     from glimmer_mg_torch.host import dna
     from glimmer_mg_torch.ops import device_predict as dpk
@@ -301,10 +350,14 @@ def sixframe_phase(gd, genomes, seed):
     t = [torch.from_numpy(a).to(DEVICE) for a in (reads, lens, grp)]
     args = (dev["gene_mip"], dev["gene_probs"], dev["indep_mip"],
             dev["indep_probs"], *t)
+    # the folded tables, made once per bank as engine/glimmer_mg.py does
+    folded = (icm_cuda.fold_pruned_probs(dev["gene_mip"], dev["gene_probs"]),
+              icm_cuda.fold_pruned_probs(dev["indep_mip"],
+                                         dev["indep_probs"]))
     kw = dict(model_len=bank.model_len, depth=bank.depth)
 
     icm_cuda.reset_launches()
-    kg, ki = icm_cuda.mg_six_frame(*args, **kw)
+    kg, ki = icm_cuda.mg_six_frame(*args, **kw, folded=folded)
     torch.cuda.synchronize()
     assert icm_cuda.launches == 1
     tg, ti = icm_score.mg_six_frame_batch(*args, **kw)
@@ -314,8 +367,23 @@ def sixframe_phase(gd, genomes, seed):
     err = max(float((kg - tg).abs().max()), float((ki - ti).abs().max()))
     if not bitwise:
         raise AssertionError(f"six_frame kernel differs from twin ({err})")
-    ms = cuda_ms(lambda: icm_cuda.mg_six_frame(*args, **kw))
+    # the wrapper call as the main path makes it (range check, one host
+    # copy, then the launch) and the kernel's own device time
+    ms = cuda_ms(lambda: icm_cuda.mg_six_frame(*args, **kw, folded=folded),
+                 reps=11)
+    launch_args = (dev["gene_mip"], folded[0], dev["indep_mip"], folded[1],
+                   *t, bank.model_len, bank.depth)
+    dev_ms = kernel_ms(lambda: icm_cuda._launch_six_frame(*launch_args))
+    dev_cold_ms = kernel_ms(lambda: icm_cuda._launch_six_frame(*launch_args),
+                            cold=True)
     plain_ms = cuda_ms(lambda: icm_score.mg_six_frame_batch(*args, **kw))
+    log("K1 staging: one read a block; gene-tree levels 0..depth-1 and the "
+        "null ICM in shared memory")
+    for line in (ptxas_lines("six_frame", "six_frame_kernelIsLi7E")
+                 or ["not compiled in this process (build/ was current)"]):
+        log(f"ptxas (int16 mip, depth 7): {line}")
+    smem = _build.lib().gmt_six_frame_smem(bank.depth, L)
+    log(f"K1 dynamic shared memory a block: {smem} B")
 
     # bound: every (read, variant, position) walks the gene ICM and the
     # null ICM in 3 frames; the outputs are 2 x (B, 6, L) f32
@@ -345,15 +413,18 @@ def sixframe_phase(gd, genomes, seed):
            + 2 * B * L * K1_OPS_PER_POSITION)
     bound_ms, bound_by = bound(nbytes, ops)
     log(f"K1 six_frame vs twin at B={B} L={L} G=16 depth={bank.depth}: "
-        f"bitwise equal; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms "
-        f"(median of 5, CUDA events); bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G integer "
-        f"instructions: {walks} walks entering {levels} levels)")
+        f"bitwise equal; wrapper call {ms:.4f} ms; kernel device time "
+        f"{dev_ms:.4f} ms warm, {dev_cold_ms:.4f} ms L2-cold; twin {plain_ms:.4f} ms (medians, CUDA events); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} G integer instructions: {walks} walks entering "
+        f"{levels} levels); share of bound: wrapper {bound_ms / ms:.3f}, "
+        f"kernel {bound_ms / dev_ms:.3f} [{gpu_line()}]")
     return {"name": "six_frame", "route": "cuda",
             "source": "glimmer_mg_torch/csrc/six_frame.cu",
             "replaces": "glimmer_mg_tpu/ops/icm_pallas.py:402",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "kernel_ms": dev_ms, "kernel_ms_cold": dev_cold_ms}
 
 
 def bankwalk_phase(bank, genomes, seed):
@@ -896,9 +967,10 @@ def main(argv=None):
     k2_record["launches"] = k2_launches
     k2_int8_record["launches"] = k2_int8_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "kernel_ms", "kernel_ms_cold")
     print(gpu_line())
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in
                                   (record, k2_record, k2_int8_record)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIB = None
 build_seconds = None  # wall time of the last compile in this process
+# source stem -> ptxas's report (registers, shared memory, spills of each
+# kernel) from the last compile in this process
+build_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -54,8 +57,9 @@ def _stale() -> bool:
     return any(s.stat().st_mtime > built for s in _sources())
 
 
-def _run(cmds: list[list[str]]) -> None:
-    """Run the commands at once; raise with nvcc's output if one fails."""
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; raise with nvcc's output if one fails,
+    else return each command's output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -64,6 +68,7 @@ def _run(cmds: list[list[str]]) -> None:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
 
 
 def build() -> pathlib.Path:
@@ -78,8 +83,9 @@ def build() -> pathlib.Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, s.stem + ".o") for s in _sources()]
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
-              for o, s in zip(objs, _sources())])
+        outs = _run([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o,
+                      str(s)] for o, s in zip(objs, _sources())])
+        build_log.update((s.stem, out) for s, out in zip(_sources(), outs))
         so = os.path.join(tmp, LIB_PATH.name)
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
         os.replace(so, LIB_PATH)
@@ -97,6 +103,8 @@ def lib() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             cdll.gmt_six_frame.argtypes = [p] * 9 + [i] * 8 + [p]
             cdll.gmt_six_frame.restype = i
+            cdll.gmt_six_frame_smem.argtypes = [i] * 2
+            cdll.gmt_six_frame_smem.restype = i
             cdll.gmt_bank_walk.argtypes = ([p] * 7 + [i] * 9
                                            + [ctypes.c_float, p])
             cdll.gmt_bank_walk.restype = i

@@ -78,7 +78,16 @@ def _bank_for(models_list, l_pad, device, bank_cache):
         bank_cache.move_to_end(key)
         return hit
     bank = dpk.build_bank(models_list, max_read_len=l_pad)
-    hit = (bank, dpk.bank_to_device(bank, device))
+    dev = dpk.bank_to_device(bank, device)
+    if torch.device(device).type == "cuda":
+        # the six-frame kernel reads prob tables with the pruned back-up
+        # folded in; they replace the raw tables on the card (a walk enters
+        # a node only through a parent whose mip is >= 0, which the fold
+        # leaves as it is, so the twin reads them alike)
+        for mip, probs in (("gene_mip", "gene_probs"),
+                           ("indep_mip", "indep_probs")):
+            dev[probs] = icm_cuda.fold_pruned_probs(dev[mip], dev[probs])
+    hit = (bank, dev)
     _lru_put(bank_cache, key, hit, _BANK_CAP)
     return hit
 
@@ -131,11 +140,14 @@ def _device_dp_chunk(jobs, device, bank_cache, *, f64=True):
     lens_t = torch.from_numpy(lens).to(device)
     grp_t = torch.from_numpy(grp).to(device)
 
+    # on the card the bank's prob tables are the folded ones (_bank_for);
+    # the CPU route ignores folded=
     gene6, ind6 = icm_cuda.mg_six_frame(
         dev_bank["gene_mip"], dev_bank["gene_probs"], dev_bank["indep_mip"],
         dev_bank["indep_probs"], reads_t, lens_t, grp_t,
         model_len=bank.model_len, depth=bank.depth,
-        gene_periodicity=bank.periodicity)
+        gene_periodicity=bank.periodicity,
+        folded=(dev_bank["gene_probs"], dev_bank["indep_probs"]))
     outs = dpk.predict_batch_device(bank, dev_bank, reads_t, lens_t, grp_t,
                                     gene6, ind6, f64=f64)
     genes, overflow = dpk.finish_genes(outs, len(jobs))

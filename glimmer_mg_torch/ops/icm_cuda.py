@@ -2,7 +2,9 @@
 
   * ``mg_six_frame`` runs ``csrc/six_frame.cu``, the counterpart of
     ``glimmer_mg_tpu.ops.icm_pallas.mg_six_frame_pallas`` (per-read
-    prediction); its twin is ``ops.icm_score.mg_six_frame_batch``.
+    prediction); its twin is ``ops.icm_score.mg_six_frame_batch``. The
+    kernel reads prob tables with the pruned back-up folded in
+    (``fold_pruned_probs``, made once per bank by the caller).
   * ``bank_score_reads_kernel`` runs ``csrc/bank_walk.cu`` on one strand,
     the counterpart of ``icm_pallas.bank_score_reads_pallas`` (Phymm
     classification), over the 16-bit tables of ``pack_tables`` or, with
@@ -31,6 +33,9 @@ FIXED_SCALE = 256.0
 # deepest bank walk: its (model, frame) table must fit a block's shared
 # memory (csrc/bank_walk.cu)
 MAX_BANK_DEPTH = 7
+# deepest six-frame gene walk (a template argument of csrc/six_frame.cu,
+# whose levels all sit in a block's shared memory)
+MAX_SIX_FRAME_DEPTH = 7
 
 # Kernel launches (plain counts; reset by callers): mg_six_frame's, and
 # the bank walk's over 16-bit and over 8-bit tables (either entry point).
@@ -173,15 +178,30 @@ def _check_ranges(gene_mip, indep_mip, reads, lengths, group, depth):
         raise ValueError("group must lie in [0, G) and lengths in [0, L]")
 
 
+def fold_pruned_probs(mip: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """Prob tables with the pruned back-up folded in, on the tables' device:
+    a node whose mip is -2 carries its parent's four values (one step, as
+    the twin's back-up after a walk; node 0 keeps its own, as in the JAX
+    package's ``pack_tables_exact``). mip (..., N), probs (..., N, 4)."""
+    n = mip.shape[-1]
+    parent = ((torch.arange(n, device=mip.device) - 1) // 4).clamp(min=0)
+    return torch.where((mip == -2)[..., None], probs[..., parent, :], probs)
+
+
 def mg_six_frame(gene_mip, gene_probs, indep_mip, indep_probs, reads, lengths,
                  group, model_len: int = 12, depth: int = 7,
-                 gene_periodicity: int = 3):
+                 gene_periodicity: int = 3, folded=None):
     """Six-frame per-position gene/null log-probs of padded reads.
 
     Same arguments and return convention as
     :func:`glimmer_mg_torch.ops.icm_score.mg_six_frame_batch`:
     (gene (B, 6, L) f32, indep (B, 6, L) f32), rows 0..2 over the reversed
-    read and 3..5 over the complemented read.
+    read and 3..5 over the complemented read. Bases lie in [0, 3] and mip
+    values in [-2, 15] (as every trained ICM's).
+
+    ``folded`` = (gene probs, null probs) from :func:`fold_pruned_probs`
+    of the same tables, made once per bank; without it the CUDA route folds
+    for this call. The CPU route ignores it (the twin backs up itself).
     """
     device = reads.device
     if device.type == "cpu":
@@ -215,18 +235,45 @@ def mg_six_frame(gene_mip, gene_probs, indep_mip, indep_probs, reads, lengths,
         raise ValueError("model_len must be in [3, 17] (32-bit context)")
     if p != gene_periodicity:
         raise ValueError("gene_periodicity must equal the table's frame count")
+    if not 0 <= depth <= MAX_SIX_FRAME_DEPTH:
+        raise ValueError(f"depth must be in [0, {MAX_SIX_FRAME_DEPTH}]")
+    if gene_mip.data_ptr() % 16:
+        raise ValueError("gene_mip must be 16-byte aligned")
+    if folded is not None:
+        gene_f, indep_f = folded
+        _check("folded gene probs", gene_f, (torch.float32,), 4, device)
+        _check("folded null probs", indep_f, (torch.float32,), 4, device)
+        if (gene_f.shape != gene_probs.shape
+                or indep_f.shape != indep_probs.shape):
+            raise ValueError("folded tables must match gene_probs and "
+                             "indep_probs")
     _check_ranges(gene_mip, indep_mip, reads, lengths, group, depth)
+    if folded is None:
+        gene_f = fold_pruned_probs(gene_mip, gene_probs)
+        indep_f = fold_pruned_probs(indep_mip, indep_probs)
+    return _launch_six_frame(gene_mip, gene_f, indep_mip, indep_f, reads,
+                             lengths, group, model_len, depth)
 
+
+def _launch_six_frame(gene_mip, gene_probs_f, indep_mip, indep_probs_f,
+                      reads, lengths, group, model_len, depth):
+    """Launch ``csrc/six_frame.cu`` on arguments that :func:`mg_six_frame`
+    has checked, with folded prob tables, and count the launch. Returns
+    (gene, indep) (B, 6, L) f32."""
     from .. import _build
 
+    device = reads.device
+    _g, p, n = gene_mip.shape
+    b, l = reads.shape
+    n2 = indep_mip.shape[2]
     gene = torch.empty((b, 6, l), dtype=torch.float32, device=device)
     ind = torch.empty((b, 6, l), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _build.lib().gmt_six_frame(
         reads.data_ptr(), lengths.data_ptr(), group.data_ptr(),
-        gene_mip.data_ptr(), gene_probs.data_ptr(), indep_mip.data_ptr(),
-        indep_probs.data_ptr(), gene.data_ptr(), ind.data_ptr(),
-        b, l, p, n, n2, model_len, depth, gene_mip.element_size(), stream)
+        gene_mip.data_ptr(), gene_probs_f.data_ptr(), indep_mip.data_ptr(),
+        indep_probs_f.data_ptr(), gene.data_ptr(), ind.data_ptr(), b, l, p,
+        n, n2, model_len, depth, gene_mip.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"six_frame kernel launch failed (cudaError {err})")
     global launches

@@ -4,9 +4,10 @@ Needs an NVIDIA GPU with nvcc (marker ``cuda``); skipped elsewhere. Run
 on a GPU machine with ``python -m pytest tests/test_torch_six_frame_cuda.py
 -q``. The kernel must be BITWISE equal to the twin over the whole
 (B, 6, L) output, pads included, for int16 and int32 mip tables, mixed
-lengths and several model groups; out-of-range indices must raise before
-a launch; and the slice end to end on the card must give the CPU run's
-output.
+lengths, 16 model groups in random row order, with and without prob
+tables folded ahead; banks whose walks land on pruned nodes included.
+Out-of-range indices and bad folded tables must raise before a launch;
+and the slice end to end on the card must give the CPU run's output.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ from glimmer_mg_torch.ops import icm_cuda, icm_score
 from tests.test_torch_icm_score import (
     OUT_OF_RANGE, _make_bank, out_of_range_call,
 )
+from tests.test_torch_six_frame_fold import _pruned_bank
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +31,14 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module")
+def bank16(cuda):
+    """16 gene ICMs (12 of depth 7, 4 of depth 3) with null ICMs, four
+    banks of four trained from different seeds."""
+    parts = [_make_bank(seed, (7, 7, 7, 3), 3, 8)[:4] for seed in range(4)]
+    return tuple(np.concatenate(tabs) for tabs in zip(*parts))
+
+
 def _on(bank, device, mip_dtype=torch.int16):
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in bank]
     t[0] = t[0].to(mip_dtype)
@@ -36,21 +46,77 @@ def _on(bank, device, mip_dtype=torch.int16):
     return t
 
 
+def _reads(seed, b, l, groups):
+    """Random reads with lengths L, 3 and 0 first, groups in random order."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, (b, l), dtype=np.int32)
+    lengths = rng.integers(0, l + 1, b).astype(np.int32)
+    lengths[:3] = (l, 3, 0)[:b]
+    for r, n in enumerate(lengths):
+        reads[r, n:] = 0
+    if isinstance(groups, int):
+        group = rng.integers(0, groups, b).astype(np.int32)
+    else:
+        group = rng.permutation(np.asarray(groups, np.int32))
+    return reads, lengths, group
+
+
+def _check_bitwise(tables, reads, lengths, group, depth=7):
+    """The wrapper with and without folded tables (one launch a call),
+    bitwise equal to the twin on the card and on the CPU."""
+    dev = [torch.from_numpy(a).to(tables[0].device)
+           for a in (reads, lengths, group)]
+    args = (*tables, *dev)
+    tg, ti = icm_score.mg_six_frame_batch(*args, model_len=12, depth=depth)
+    if reads.size <= 100_000:  # the twin on the CPU too, where it is quick
+        cpu = icm_score.mg_six_frame_batch(*[a.cpu() for a in args],
+                                           model_len=12, depth=depth)
+        assert torch.equal(tg.cpu(), cpu[0]) and torch.equal(ti.cpu(), cpu[1])
+    folded = (icm_cuda.fold_pruned_probs(tables[0], tables[1]),
+              icm_cuda.fold_pruned_probs(tables[2], tables[3]))
+    runs = {}
+    for fold in (None, folded):
+        icm_cuda.reset_launches()
+        runs[f"wrapper, folded={fold is not None}"] = icm_cuda.mg_six_frame(
+            *args, model_len=12, depth=depth, folded=fold)
+        torch.cuda.synchronize()
+        assert icm_cuda.launches == 1
+    for name, (kg, ki) in runs.items():
+        assert torch.equal(kg.view(torch.int32), tg.view(torch.int32)), name
+        assert torch.equal(ki.view(torch.int32), ti.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("pruned", [False, True])
 @pytest.mark.parametrize("mip_dtype", [torch.int16, torch.int32])
 @pytest.mark.parametrize("b,l", [(7, 384), (64, 768), (3, 5)])
-def test_kernel_bitwise_equals_twin(cuda, mip_dtype, b, l):
+def test_kernel_bitwise_equals_twin(cuda, mip_dtype, b, l, pruned):
     bank = _make_bank(3, (7, 7, 3), b, l)
-    t = _on(bank, cuda, mip_dtype)
-    icm_cuda.reset_launches()
-    kg, ki = icm_cuda.mg_six_frame(*t, model_len=12, depth=7)
-    torch.cuda.synchronize()
-    assert icm_cuda.launches == 1
-    tg, ti = icm_score.mg_six_frame_batch(*t, model_len=12, depth=7)
-    assert torch.equal(kg.view(torch.int32), tg.view(torch.int32))
-    assert torch.equal(ki.view(torch.int32), ti.view(torch.int32))
-    cg, _ci = icm_score.mg_six_frame_batch(*_on(bank, "cpu", mip_dtype),
-                                           model_len=12, depth=7)
-    assert torch.equal(kg.cpu(), cg)
+    if pruned:  # the same seed's tables, a fifth of their nodes pruned
+        bank = _pruned_bank()[:4] + bank[4:]
+    _check_bitwise(_on(bank[:4], cuda, mip_dtype), *bank[4:])
+
+
+@pytest.mark.parametrize("mip_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("b,l", [(1, 5), (1, 768), (2048, 5), (2048, 96),
+                                 (2048, 768)])
+def test_kernel_bitwise_16_groups_random_order(cuda, bank16, mip_dtype, b, l):
+    _check_bitwise(_on(bank16, cuda, mip_dtype),
+                        *_reads(b + l, b, l, 16))
+
+
+def test_kernel_bitwise_pruned_16_groups(cuda):
+    """Walks that land on pruned nodes, 16 groups, B 2,048 x L 768."""
+    bank = _pruned_bank()[:4]
+    tables = _on(tuple(np.concatenate([a] * 6)[:16] for a in bank), cuda)
+    _check_bitwise(tables, *_reads(4, 2048, 768, 16))
+
+
+def test_kernel_bitwise_uneven_groups(cuda, bank16):
+    """Groups of 8 and 32 reads in random order, and one group with a
+    single read."""
+    groups = np.repeat(np.arange(5), 8).tolist() + [5] * 32 + [15]
+    _check_bitwise(_on(bank16, cuda), *_reads(9, len(groups), 96,
+                                                   groups))
 
 
 def test_wrapper_checks_inputs(cuda):
@@ -69,6 +135,26 @@ def test_wrapper_checks_inputs(cuda):
         icm_cuda.mg_six_frame(*bad, model_len=12, depth=7)
 
 
+@pytest.mark.parametrize("case", ["short", "cpu", "float16", "one"])
+def test_rejected_launch_raises_and_counts_nothing(cuda, case):
+    t = _on(_make_bank(3, (7, 3), 4, 96), cuda)
+    folded = [icm_cuda.fold_pruned_probs(t[0], t[1]),
+              icm_cuda.fold_pruned_probs(t[2], t[3])]
+    kw = {"model_len": 12, "depth": 7}
+    if case == "short":
+        folded[0] = folded[0][:, :, :-1].contiguous()
+    elif case == "cpu":
+        folded[1] = folded[1].cpu()
+    elif case == "float16":
+        folded[0] = folded[0].to(torch.float16)
+    else:
+        folded = folded[:1]
+    icm_cuda.reset_launches()
+    with pytest.raises((ValueError, TypeError)):
+        icm_cuda.mg_six_frame(*t, folded=tuple(folded), **kw)
+    assert icm_cuda.launches == 0
+
+
 @pytest.mark.parametrize("case", OUT_OF_RANGE)
 def test_wrapper_rejects_out_of_range_indices(cuda, case):
     t = _on(_make_bank(3, (7, 3), 4, 96), cuda)
@@ -81,7 +167,7 @@ def test_wrapper_rejects_out_of_range_indices(cuda, case):
 
 def test_slice_on_card_matches_cpu(cuda):
     from glimmer_mg_torch.engine import glimmer_mg as tmg
-    from glimmer_mg_tpu.models import dna, icm_train
+    from glimmer_mg_torch.models import dna, icm_train
 
     from tests._torch_common import _gene_like, overlap_dense_reads
 
