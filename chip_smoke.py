@@ -42,7 +42,28 @@ Phases (any failure raises and exits non-zero):
      .predict text byte-identical to the host engine on the same
      .class.txt, the prediction routing limits of phase 5. Prints a warm
      classify_file call's reads/s, model-Mbp/s and wall split by layer,
-     and a warm pipeline run's wall split by stage.
+     and a warm pipeline run's wall split by stage;
+  7. substitution mode: reads sampled as in phase 5 with 0.5%
+     substitutions per base, two thirds with Phred 2-41 qualities,
+     through run_glimmer_mg_classes(device="cuda", allow_subs=True,
+     qualities=...). Checks: K1 launched, only overflow reads took the
+     host route (at most 5%), the first reads' .predict text, substitution
+     records included, byte-identical to the host engine, at least 1% of
+     the genes carry a substitution record. Prints warm reads/s, a warm
+     pass's wall split by layer and a per-stage breakdown of one chunk;
+     K1 against its twin, bitwise, on the inputs of the path's K1 call
+     with the most bank rows (B, L and G printed);
+  8. indel mode: 454-like reads (homopolymer indels at 0.3% per base, no
+     quality file) through run_glimmer_mg_classes(device="cuda",
+     allow_indels=True): K1 on the card, then the native C++ engine on the
+     host. Checks: K1 launched, every read counted in native_reads, the
+     first 64 reads byte-identical to the host engine, K1 against its
+     twin on the route's own inputs as in phase 7. Prints warm reads/s
+     and the engine's thread count.
+
+K1's "launches" in the kernels record is the sum over the three paths it
+runs on (phases 5, 7 and 8, each counted from zero around its first
+pass), "launches_by_path" gives each.
 
 The script imports only glimmer_mg_torch and checks at the end that no
 module of JAX or of glimmer_mg_tpu was loaded.
@@ -557,31 +578,34 @@ def log_parts(title, wall, parts):
                                      for k, v in parts.items()}))
 
 
-def timed_pass(gd, reads, cmap, want):
-    """One more warm pass with its host-clock time split by layer; the
-    parts add up to the pass's wall time ("other": encoding, emission
-    order, padding)."""
+def timed_pass(gd, reads, cmap, want, title="timed warm pass", **kw):
+    """One more warm pass (run_glimmer_mg_classes options ``kw``) with its
+    host-clock time split by layer; the parts add up to the pass's wall
+    time ("other": encoding, emission order, padding, uploads)."""
     import torch
 
+    from glimmer_mg_torch import native
     from glimmer_mg_torch.engine import glimmer_mg as tmg
     from glimmer_mg_torch.ops import device_predict as dpk
     from glimmer_mg_torch.ops import icm_cuda
 
     stages = [(tmg, "classes_models", "models", False),
               (tmg, "_bank_for", "bank", False),
+              (tmg, "_frame_bank_for", "frame_bank", False),
               (icm_cuda, "mg_six_frame", "six_frame", True),
               (dpk, "predict_batch_device", "frontend_dp_traceback", True),
               (dpk, "finish_genes", "finish_genes", False),
+              (native, "predict_batch", "native_engine", False),
               (tmg, "_host_predict", "host_engine", False)]
     with wrapped_parts(stages) as parts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = list(tmg.run_glimmer_mg_classes(reads, gd, cmap,
-                                              device=DEVICE))
+                                              device=DEVICE, **kw))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     assert tmg.format_predict_mg(got) == tmg.format_predict_mg(want)
-    log_parts(f"timed warm pass: {len(reads)} reads", wall, parts)
+    log_parts(f"{title}: {len(reads)} reads", wall, parts)
 
 
 def f32_pass(gd, reads, cmap, want):
@@ -606,8 +630,11 @@ def f32_pass(gd, reads, cmap, want):
         f"the f64 run: {differ}")
 
 
-def stage_breakdown(gd, reads, cmap):
-    """Host-clock stage times (synchronised) of one 2,048-read chunk."""
+def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
+                    subs=False):
+    """Host-clock stage times (synchronised) of one 2,048-read chunk, in
+    substitution mode with ``subs`` (``quals``: qualities by header)."""
+    import numpy as np
     import torch
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
@@ -639,10 +666,18 @@ def stage_breakdown(gd, reads, cmap):
     lens = torch.tensor([len(s) for _h, s in chunk],
                         dtype=torch.int32).to(DEVICE)
     grp = torch.tensor(group, dtype=torch.int32).to(DEVICE)
+    q_t = None
+    if quals:
+        q = np.full((len(chunk), 768), 255, np.uint8)
+        for r, (h, _s) in enumerate(chunk):
+            if h in quals:
+                q[r, :len(quals[h])] = np.minimum(quals[h], 254)
+        q_t = torch.from_numpy(q).to(DEVICE)
     consts = dict(min_gene_len=bank.min_gene_len, max_olap=bank.max_olap,
                   event_threshold=bank.event_threshold,
                   start_threshold=bank.start_threshold,
-                  ws=bank.ribosome_window, W=bank.pwm_w, fdt=torch.float64)
+                  ws=bank.ribosome_window, W=bank.pwm_w, fdt=torch.float64,
+                  subs=subs)
     times = {}
 
     def stage(name, fn):
@@ -658,7 +693,8 @@ def stage_breakdown(gd, reads, cmap):
         dev["indep_probs"], reads_t, lens, grp, model_len=bank.model_len,
         depth=bank.depth))
     ev, n_ev = stage("frontend", lambda: frontend.frontend(
-        reads_t, lens, grp, g6, i6, dev, 768, consts, dpk.MAX_EVENTS))
+        reads_t, lens, grp, g6, i6, dev, 768, consts, dpk.MAX_EVENTS,
+        quals=q_t))
     ne = torch.clamp(n_ev, max=dpk.MAX_EVENTS)
     adj = event_dp._prefetch_adj(dev, grp)
     sc, bp, best, _w = stage("event_dp", lambda: event_dp.event_dp_batched(
@@ -666,7 +702,7 @@ def stage_breakdown(gd, reads, cmap):
     syncs = event_dp.last_syncs
     stage("traceback", lambda: event_dp.traceback_batched(ev, sc, bp, best,
                                                           ne))
-    log(f"stage breakdown, one {len(chunk)}-read chunk "
+    log(f"{title}, one {len(chunk)}-read chunk "
         "(ms, host clock, synchronised): "
         + json.dumps({k: round(v, 3) for k, v in times.items()})
         + f"; DP steps {int(ne.max())}, host syncs {syncs}")
@@ -818,6 +854,162 @@ def pipeline_warm(fa, icm_dir, root):
               {st.name: st.wall_s for st in timers.stages})
 
 
+def with_substitutions(reads, rate, seed):
+    """Each base replaced by another at ``rate``; Phred 2-41 qualities for
+    two reads in three. Returns (reads, qualities by header)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out, quals = [], {}
+    for i, (h, s) in enumerate(reads):
+        seq = np.frombuffer(s.encode(), dtype=np.uint8).copy()
+        hit = rng.random(len(seq)) < rate
+        shift = rng.integers(1, 4, len(seq))
+        idx = np.searchsorted(np.frombuffer(b"acgt", np.uint8), seq)
+        seq[hit] = np.frombuffer(b"acgt", np.uint8)[(idx + shift)[hit] % 4]
+        out.append((h, seq.tobytes().decode()))
+        if i % 3 != 2:
+            quals[h] = rng.integers(2, 42, len(seq)).tolist()
+    return out, quals
+
+
+def with_homopolymer_indels(reads, rate, seed):
+    """454-like errors: inside homopolymer runs (about a quarter of the
+    bases) a base is dropped or repeated at 4 x ``rate``, so ``rate`` per
+    base over a read."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for h, s in reads:
+        u = rng.random(len(s))
+        parts = []
+        for k, ch in enumerate(s):
+            r = u[k] if k and s[k - 1] == ch else 1.0
+            if r >= 2 * rate:
+                parts.append(ch + ch if r < 4 * rate else ch)
+        out.append((h, "".join(parts)))
+    return out
+
+
+def error_mode_phase(name, gd, reads, cmap, check, **kw):
+    """One error mode's path (run_glimmer_mg_classes options ``kw``):
+    a counted cold pass, K1 against its twin on the inputs of the pass's
+    call with the most bank rows, a warm pass for reads/s, a timed pass
+    split by layer, and the first ``check`` reads against the host engine.
+    Returns (K1 launches of the counted pass, route counters, genes, the
+    cold pass's output)."""
+    import torch
+
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.ops import icm_cuda, icm_score
+
+    # the route's K1 calls, kept for the twin check below (the capture
+    # launches nothing itself)
+    widest = {}
+    real_six_frame = icm_cuda.mg_six_frame
+
+    def capture(*a, **k):
+        res = real_six_frame(*a, **k)
+        if a[0].shape[0] > widest.get("G", 0):
+            widest.update(G=a[0].shape[0], args=a, kw=k,
+                          out=[x.clone() for x in res])
+        return res
+
+    tmg.reset_counters()
+    icm_cuda.reset_launches()
+    icm_cuda.mg_six_frame = capture
+    try:
+        t0 = time.perf_counter()
+        out = list(tmg.run_glimmer_mg_classes(reads, gd, cmap, device=DEVICE,
+                                              **kw))
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    finally:
+        icm_cuda.mg_six_frame = real_six_frame
+    launches, counts = icm_cuda.launches, dict(tmg.counters)
+    genes = [g for _h, gs in out for g in gs]
+    log(f"{name} pass 1: {len(out)} reads in {cold:.2f} s; K1 launches "
+        f"{launches}; routes {counts}; {len(genes)} genes, "
+        f"{sum(1 for g in genes if g.errors)} with error records")
+    assert launches > 0, f"the {name} path did not launch K1"
+    assert len(out) == len(reads)
+    args, twin_kw = widest["args"], dict(widest["kw"])
+    twin_kw.pop("folded", None)
+    tg, ti = icm_score.mg_six_frame_batch(*args, **twin_kw)
+    kg, ki = widest["out"]
+    bitwise = (torch.equal(kg.view(torch.int32), tg.view(torch.int32))
+               and torch.equal(ki.view(torch.int32), ti.view(torch.int32)))
+    B, L = args[4].shape
+    log(f"{name}: K1 vs twin on the route's own inputs (its call with the "
+        f"most bank rows): B={B} L={L} G={widest['G']} "
+        f"depth={twin_kw['depth']}: "
+        f"{'bitwise equal' if bitwise else 'DIFFER'}")
+    assert bitwise, f"K1 differs from its twin on the {name} route"
+    for g in genes:
+        assert g.score == g.score and abs(g.score) < 1e6
+        assert g.frame in (-3, -2, -1, 1, 2, 3)
+
+    t0 = time.perf_counter()
+    out2 = list(tmg.run_glimmer_mg_classes(reads, gd, cmap, device=DEVICE,
+                                           **kw))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    assert tmg.format_predict_mg(out2) == tmg.format_predict_mg(out)
+    log(f"{name} pass 2 (warm): {len(reads)} reads in {warm:.3f} s = "
+        f"{len(reads) / warm:.1f} reads/s")
+    timed_pass(gd, reads, cmap, out, title=f"{name} timed warm pass", **kw)
+
+    sub = reads[:check]
+    host = list(tmg.run_glimmer_mg_classes(
+        sub, gd, {h: cmap[h] for h, _s in sub}, device=DEVICE,
+        host_engine=True, **kw))
+    by_header = dict(out)
+    mine = [(h, by_header[h]) for h, _g in host]
+    same = tmg.format_predict_mg(host) == tmg.format_predict_mg(mine)
+    log(f"{name}: first {len(sub)} reads vs host engine: "
+        f"{'byte-identical' if same else 'DIFFER'} "
+        f"({sum(len(g) for _h, g in host)} genes, "
+        f"{sum(1 for _h, gs in host for g in gs if g.errors)} with error "
+        f"records)")
+    assert same, f"{name} output differs from the host engine"
+    return launches, counts, genes, out
+
+
+def subs_phase(gd, genomes, n_reads, check, seed):
+    """Phase 7: substitution mode on the card. Returns K1's launches."""
+    reads, cmap = sample_reads(genomes, n_reads, seed)
+    reads, quals = with_substitutions(reads, 0.005, seed + 1)
+    launches, counts, genes, _out = error_mode_phase(
+        "subs mode", gd, reads, cmap, check, allow_subs=True,
+        qualities=quals)
+    stage_breakdown(gd, reads, cmap, "subs mode stage breakdown",
+                    quals=quals, subs=True)
+    assert counts["device_reads"] + counts["host_reads"] == len(reads)
+    assert counts["host_reads"] == counts["overflow_reads"], counts
+    assert counts["host_reads"] <= 0.05 * len(reads), counts
+    n_sub = sum(1 for g in genes if g.errors)
+    assert all(e.type == 2 for g in genes for e in g.errors)
+    assert n_sub >= 0.01 * len(genes), (n_sub, len(genes))
+    return launches
+
+
+def indel_phase(gd, genomes, n_reads, check, seed):
+    """Phase 8: indel mode, K1 on the card feeding the native engine.
+    Returns K1's launches."""
+    from glimmer_mg_torch import native
+
+    reads, cmap = sample_reads(genomes, n_reads, seed)
+    reads = with_homopolymer_indels(reads, 0.003, seed + 1)
+    log(f"indel mode: native engine threads {native.default_threads()} "
+        f"(host cores {os.cpu_count()})")
+    launches, counts, _genes, _out = error_mode_phase(
+        "indel mode", gd, reads, cmap, check, allow_indels=True)
+    assert counts["native_reads"] == len(reads), counts
+    assert counts["host_reads"] == counts["device_reads"] == 0, counts
+    return launches
+
+
 def profile_pass(gd, reads, cmap):
     """One more warm pass under torch.profiler: device busy share (sum of
     kernel times over the pass's wall time) and the top kernels."""
@@ -960,15 +1152,22 @@ def main(argv=None):
                       sum(len(s) for _h, s in reads))
         pipeline_warm(fa, icm_dir, root)
 
+        k1_paths = {"prediction": launches}
+        k1_paths["subs"] = subs_phase(gd, genomes, args.reads, args.check,
+                                      args.seed + 11)
+        k1_paths["indels"] = indel_phase(gd, genomes, args.reads,
+                                         min(args.check, 64), args.seed + 13)
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
     assert not bad, f"JAX or JAX package modules were loaded: {bad[:5]}"
-    record["launches"] = launches
+    record["launches"] = sum(k1_paths.values())
+    record["launches_by_path"] = k1_paths
     k2_record["launches"] = k2_launches
     k2_int8_record["launches"] = k2_int8_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "kernel_ms", "kernel_ms_cold")
+            "kernel_ms", "kernel_ms_cold", "launches_by_path")
     print(gpu_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in
                                   (record, k2_record, k2_int8_record)]}))

@@ -1,36 +1,44 @@
 """glimmer-mg per-read prediction with the device path in PyTorch.
 
 Counterpart of the device half of ``glimmer_mg_tpu.engine.glimmer_mg``
-(``_device_dp_chunk``, ``run_glimmer_mg``, ``run_glimmer_mg_classes``).
-The host half (Models, the exact per-read host engine, output formatting,
-the classes emission order) is the port's own copy in ``engine.glimmer3``
-and ``engine.mg_host``.
+(``_device_dp_chunk``, ``device_frame_scores``, ``_native_predict``,
+``run_glimmer_mg``, ``run_glimmer_mg_classes``). The host half (Models,
+the exact per-read host engine, output formatting, the classes emission
+order) is the port's own copy in ``engine.glimmer3`` and
+``engine.mg_host``; the native C++ engine is ``glimmer_mg_torch.native``.
 
 Routing is explicit and counted in ``counters``:
   * device_reads: reads predicted on ``device`` (six-frame kernel, frontend,
-    event DP, traceback);
+    event DP, traceback), in the error-free and the substitution mode,
+    with or without a quality file;
+  * native_reads: indel-mode reads, predicted by the native C++ engine on
+    six-frame scores from the six-frame kernel on ``device``;
   * host_reads: reads predicted by the exact host engine
     (``_predict_read_with_models``), either because the caller asked for
     it (``host_engine=True``), or because the whole chunk is outside the
-    device path's scope (indel or substitution mode, circular genomes,
-    models that cannot share one bank), or because the read
-    overflowed the device capacities (more than MAX_EVENTS events, more
-    than MAX_GENES genes, or the DP's row window);
+    device and native routes' scope (circular genomes, models that cannot
+    share one bank), or because the read overflowed the device capacities
+    (more than MAX_EVENTS events, more than MAX_GENES genes, or the DP's
+    row window);
   * overflow_reads: the overflow subset of host_reads.
-Unclassified reads (classes mode) yield [] and are not counted.
+Unclassified reads (classes mode) yield [] and are not counted. Indel mode
+needs the native engine: when it is disabled or cannot be built, the call
+raises.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from .. import native as native_mod
 from ..models import dna, icm as icm_mod
 from ..ops import device_predict as dpk
-from ..ops import icm_cuda
+from ..ops import icm_cuda, icm_score
 from . import orfs as orf_mod
 from .glimmer3 import Models
 from .mg_host import (
@@ -41,7 +49,8 @@ from .mg_host import (
 __all__ = ["run_glimmer_mg", "run_glimmer_mg_classes", "format_predict_mg",
            "counters", "reset_counters"]
 
-counters = {"device_reads": 0, "host_reads": 0, "overflow_reads": 0}
+counters = {"device_reads": 0, "native_reads": 0, "host_reads": 0,
+            "overflow_reads": 0}
 
 
 def reset_counters() -> None:
@@ -69,27 +78,74 @@ def _model_tag(models):
     return getattr(models, "_cache_tag", None) or _stable_tag(models, "m")
 
 
-def _bank_for(models_list, l_pad, device, bank_cache):
-    """(bank, its device tensors) for one chunk, from the call's LRU
-    ``bank_cache`` keyed by (model tags, length bucket)."""
-    key = (tuple(_model_tag(m) for m in models_list), l_pad)
+def _cached(bank_cache, key, build):
+    """``bank_cache[key]``, made by ``build()`` on a miss (None is not
+    cached)."""
     hit = bank_cache.get(key)
     if hit is not None:
         bank_cache.move_to_end(key)
         return hit
-    bank = dpk.build_bank(models_list, max_read_len=l_pad)
-    dev = dpk.bank_to_device(bank, device)
-    if torch.device(device).type == "cuda":
-        # the six-frame kernel reads prob tables with the pruned back-up
-        # folded in; they replace the raw tables on the card (a walk enters
-        # a node only through a parent whose mip is >= 0, which the fold
-        # leaves as it is, so the twin reads them alike)
+    hit = build()
+    if hit is not None:
+        _lru_put(bank_cache, key, hit, _BANK_CAP)
+    return hit
+
+
+def _kernel_probs(mip, probs):
+    """The prob tables the six-frame kernel reads: on the card, with the
+    pruned back-up folded in (a walk enters a node only through a parent
+    whose mip is >= 0, which the fold leaves as it is, so the twin reads
+    them alike); on the CPU, as they are."""
+    if mip.device.type == "cuda":
+        return icm_cuda.fold_pruned_probs(mip, probs)
+    return probs
+
+
+def _bank_for(rows, models_list, l_pad, device, bank_cache):
+    """(bank, its device tensors) for one chunk, from the call's LRU
+    ``bank_cache`` keyed by (model tags ``rows``, length bucket)."""
+    def build():
+        bank = dpk.build_bank(models_list, max_read_len=l_pad)
+        dev = dpk.bank_to_device(bank, device)
         for mip, probs in (("gene_mip", "gene_probs"),
                            ("indep_mip", "indep_probs")):
-            dev[probs] = icm_cuda.fold_pruned_probs(dev[mip], dev[probs])
-    hit = (bank, dev)
-    _lru_put(bank_cache, key, hit, _BANK_CAP)
-    return hit
+            dev[probs] = _kernel_probs(dev[mip], dev[probs])
+        return bank, dev
+
+    return _cached(bank_cache, (tuple(rows), l_pad), build)
+
+
+def _chunk_batch(jobs, row_key, device):
+    """A chunk as the six-frame kernel takes it: its distinct bank rows
+    and its reads on ``device``. Returns (row keys, one Models per row,
+    reads (b_pad, l_pad) int32, lengths (b_pad,), row of each read
+    (b_pad,)), reads in input order padded to _bucket(l, 256) x
+    _bucket(b, 64).
+
+    A row is one distinct ``row_key(models)``; rows are in key order, not
+    first-seen order, so that chunks holding the same rows share one
+    cached bank."""
+    key_of = {}
+    for _s, m, _q, _hq in jobs:
+        if id(m) not in key_of:
+            key_of[id(m)] = row_key(m)
+    rows = {}
+    for _s, m, _q, _hq in jobs:
+        rows.setdefault(key_of[id(m)], m)
+    keys = sorted(rows, key=repr)
+    index = {k: gi for gi, k in enumerate(keys)}
+
+    l_pad = _bucket(max(len(s) for s, *_ in jobs))
+    b_pad = _bucket(len(jobs), 64)
+    reads = np.zeros((b_pad, l_pad), dtype=np.int32)
+    lens = np.zeros(b_pad, dtype=np.int32)
+    grp = np.zeros(b_pad, dtype=np.int32)
+    for r, (seq_idx, m, _q, _hq) in enumerate(jobs):
+        reads[r, : len(seq_idx)] = seq_idx
+        lens[r] = len(seq_idx)
+        grp[r] = index[key_of[id(m)]]
+    return (keys, [rows[k] for k in keys],
+            *(torch.from_numpy(a).to(device) for a in (reads, lens, grp)))
 
 
 def _host_predict(jobs, allow_indels=False, allow_subs=False):
@@ -101,44 +157,49 @@ def _host_predict(jobs, allow_indels=False, allow_subs=False):
             for s, m, q, hq in jobs]
 
 
-def _device_dp_chunk(jobs, device, bank_cache, *, f64=True):
-    """Predict one chunk of error-free reads on ``device``.
+def _in_scope(jobs):
+    """Whether a chunk's models suit the device and native routes: linear
+    reads with truncated ORFs allowed."""
+    return all(not m.circular and m.allow_truncated_orfs
+               for _s, m, _q, _hq in jobs)
+
+
+def _quals_tensor(jobs, b_pad, l_pad, device):
+    """(b_pad, l_pad) uint8 per-base qualities of a chunk on ``device``,
+    or None when no read has a quality file: values min(q, 254), 255 in
+    rows without a quality file and past a read's end (the default
+    probability of ``_CP_TAB``)."""
+    if not any(hq and q is not None for _s, _m, q, hq in jobs):
+        return None
+    arr = np.full((b_pad, l_pad), 255, np.uint8)
+    for r, (_s, _m, q, hq) in enumerate(jobs):
+        if hq and q is not None:
+            qv = np.minimum(np.asarray(q[:l_pad], np.int64), 254)
+            arr[r, : len(qv)] = qv.astype(np.uint8)
+    return torch.from_numpy(arr).to(device)
+
+
+def _device_dp_chunk(jobs, device, bank_cache, *, f64=True, allow_subs=False):
+    """Predict one chunk of reads on ``device``, error-free or, with
+    ``allow_subs``, in substitution mode (per-base qualities go up as
+    uint8 for the reads that have a quality file; the error-free mode
+    never reads them).
 
     jobs: [(seq_idx, models, quals, have_qual)]. Returns
     list[list[TracedGene]], or None when the chunk cannot share one device
     batch (circular or non-truncated models, non-uniform scalars).
-    Overflowing reads are re-run on the host engine.
+    Overflowing reads are re-run on the host engine in the same mode.
     """
-    for _s, models, _q, _hq in jobs:
-        if models.circular or not models.allow_truncated_orfs:
-            return None
-    # bank rows in tag order, not first-seen order, so that chunks holding
-    # the same models share one cached bank
-    uniq = {id(m): m for _s, m, _q, _hq in jobs}
-    models_list = sorted(uniq.values(), key=lambda m: repr(_model_tag(m)))
-    index = {id(m): gi for gi, m in enumerate(models_list)}
-    group = np.array([index[id(m)] for _s, m, _q, _hq in jobs],
-                     dtype=np.int32)
-
-    # reads in input order, padded to _bucket(l, 256) x _bucket(b, 64)
-    lengths = np.array([len(s) for s, *_ in jobs], dtype=np.int32)
-    l_pad = _bucket(int(lengths.max(initial=1)))
-    b_pad = _bucket(len(jobs), 64)
+    if not _in_scope(jobs):
+        return None
+    rows, models_list, reads_t, lens_t, grp_t = _chunk_batch(
+        jobs, _model_tag, device)
+    b_pad, l_pad = reads_t.shape
     try:
-        bank, dev_bank = _bank_for(models_list, l_pad, device, bank_cache)
+        bank, dev_bank = _bank_for(rows, models_list, l_pad, device,
+                                   bank_cache)
     except ValueError:
         return None
-
-    reads = np.zeros((b_pad, l_pad), dtype=np.int32)
-    for r, (seq_idx, *_rest) in enumerate(jobs):
-        reads[r, : len(seq_idx)] = seq_idx
-    lens = np.zeros(b_pad, dtype=np.int32)
-    lens[: len(jobs)] = lengths
-    grp = np.zeros(b_pad, dtype=np.int32)
-    grp[: len(jobs)] = group
-    reads_t = torch.from_numpy(reads).to(device)
-    lens_t = torch.from_numpy(lens).to(device)
-    grp_t = torch.from_numpy(grp).to(device)
 
     # on the card the bank's prob tables are the folded ones (_bank_for);
     # the CPU route ignores folded=
@@ -148,32 +209,135 @@ def _device_dp_chunk(jobs, device, bank_cache, *, f64=True):
         model_len=bank.model_len, depth=bank.depth,
         gene_periodicity=bank.periodicity,
         folded=(dev_bank["gene_probs"], dev_bank["indep_probs"]))
+    quals_t = (_quals_tensor(jobs, b_pad, l_pad, device) if allow_subs
+               else None)
     outs = dpk.predict_batch_device(bank, dev_bank, reads_t, lens_t, grp_t,
-                                    gene6, ind6, f64=f64)
+                                    gene6, ind6, f64=f64, subs=allow_subs,
+                                    quals=quals_t)
     genes, overflow = dpk.finish_genes(outs, len(jobs))
     n_over = 0
     for r, job in enumerate(jobs):
         if overflow[r]:
-            genes[r] = _host_predict([job])[0]
+            # in the call's error mode: overflowing reads of a subs chunk
+            # keep their substitution records
+            genes[r] = _host_predict([job], allow_subs=allow_subs)[0]
             n_over += 1
     counters["overflow_reads"] += n_over
     counters["device_reads"] += len(jobs) - n_over
     return genes
 
 
+def _frame_row(models):
+    """A Models' row in the indel route's six-frame bank: its gene ICM by
+    identity and its null ICM by content (classes mode builds a null ICM
+    for every Models, the same for reads of the same classes), so the rows
+    are at most the chunk's class combinations."""
+    null = models.indep_model
+    digest = hashlib.blake2b(null.mip.tobytes() + null.probs.tobytes(),
+                             digest_size=16).digest()
+    return _stable_tag(models.gene_icm, "icm"), digest
+
+
+def _frame_bank_for(rows, models_list, device, bank_cache):
+    """(ICM bank tables on ``device``, model_len, depth, periodicity) of
+    the six-frame kernel for an indel chunk, from the call's cache keyed
+    by the rows; None when the gene ICMs differ in model length or
+    periodicity."""
+    def build():
+        genes = [m.gene_icm for m in models_list]
+        g0 = genes[0]
+        if any(g.model_len != g0.model_len or g.periodicity != g0.periodicity
+               for g in genes):
+            return None
+        gm, gp, im, ip = (torch.from_numpy(a).to(device) for a in (
+            *icm_score.stack_bank(genes),
+            *icm_score.stack_bank([m.indep_model for m in models_list])))
+        tabs = (gm, _kernel_probs(gm, gp), im, _kernel_probs(im, ip))
+        return (tabs, g0.model_len, max(g.model_depth for g in genes),
+                g0.periodicity)
+
+    return _cached(bank_cache, ("frames",) + tuple(rows), build)
+
+
+def _frame_scores(jobs, device, bank_cache):
+    """Per-read six-frame scores for the native engine: (6, n) f64 arrays,
+    frames 0..2 forward and 3..5 reverse, each the gene-minus-null log-prob
+    (the counterpart of ``device_frame_scores_dispatch/finish``). The
+    six-frame kernel runs on ``device`` (its twin on the CPU); the f64
+    differences are formed there, the forward frames reversed on the host
+    as the JAX package does. None when the chunk cannot share one kernel
+    call."""
+    rows, models_list, reads_t, lens_t, grp_t = _chunk_batch(
+        jobs, _frame_row, device)
+    fb = _frame_bank_for(rows, models_list, device, bank_cache)
+    if fb is None:
+        return None
+    tabs, model_len, depth, periodicity = fb
+    gene6, ind6 = icm_cuda.mg_six_frame(
+        *tabs, reads_t, lens_t, grp_t, model_len=model_len, depth=depth,
+        gene_periodicity=periodicity, folded=(tabs[1], tabs[3]))
+    diff = (gene6.to(torch.float64) - ind6.to(torch.float64)).cpu().numpy()
+    out = []
+    for r, (seq_idx, *_rest) in enumerate(jobs):
+        n = len(seq_idx)
+        fs = np.empty((6, n), dtype=np.float64)
+        fs[:3] = diff[r, :3, :n][:, ::-1]
+        fs[3:] = diff[r, 3:, :n]
+        out.append(fs)
+    return out
+
+
+def _native_predict(jobs, fs_list):
+    """Run an indel-mode chunk through the port's native C++ engine on the
+    frame scores ``fs_list``. Raises RuntimeError when the engine is
+    disabled or cannot be built: no quiet fall-back onto the Python
+    engine."""
+    try:
+        native_mod.get_lib()
+        njobs = []
+        for (s, m, q, hq), fs in zip(jobs, fs_list):
+            # the marshalled tables live as long as the Models
+            nm = getattr(m, "_native_marshal", None)
+            if nm is None:
+                nm = m._native_marshal = native_mod.NativeModels(m)
+            njobs.append((s, q, hq, fs, nm))
+    except native_mod.NativeUnavailable as exc:
+        raise RuntimeError(f"indel mode runs on the native engine, which is "
+                           f"unavailable: {exc}") from exc
+    genes = native_mod.predict_batch(njobs, allow_indels=True)
+    counters["native_reads"] += len(jobs)
+    return genes
+
+
+def _indel_chunk(jobs, device, bank_cache):
+    """Indel mode: the six-frame kernel on ``device``, then the native
+    engine. None when the chunk is outside this route's scope."""
+    if not _in_scope(jobs):
+        return None
+    fs_list = _frame_scores(jobs, device, bank_cache)
+    if fs_list is None:
+        return None
+    return _native_predict(jobs, fs_list)
+
+
 def _chunk_predictor(device, *, allow_indels, allow_subs, f64, host_engine):
-    """One call's chunk router, with the call's own bank cache: the device
-    path when in scope, else the host engine."""
+    """One call's chunk router, with the call's own bank cache: indel
+    chunks to the six-frame kernel and the native engine, the others to
+    the device path; chunks outside their scope, and every chunk with
+    ``host_engine``, to the exact host engine."""
     bank_cache: OrderedDict = OrderedDict()
 
     def predict(jobs):
         if not jobs:
             return []
-        # indel and substitution modes are outside this port's device path
-        if not (allow_indels or allow_subs or host_engine):
-            genes = _device_dp_chunk(jobs, device, bank_cache, f64=f64)
-            if genes is not None:
-                return genes
+        genes = None
+        if allow_indels and not host_engine:
+            genes = _indel_chunk(jobs, device, bank_cache)
+        elif not host_engine:
+            genes = _device_dp_chunk(jobs, device, bank_cache, f64=f64,
+                                     allow_subs=allow_subs)
+        if genes is not None:
+            return genes
         return _host_predict(jobs, allow_indels, allow_subs)
 
     return predict

@@ -1,8 +1,9 @@
 """Device-resident per-read gene prediction: bank tables and batch entry.
 
 PyTorch counterpart of ``glimmer_mg_tpu.ops.device_predict`` for the
-error-free mode (no substitution or indel branching, linear reads,
-truncated ORFs allowed, default start codons). The six-frame ICM
+error-free and the substitution mode, with or without per-base qualities
+(no indel branching, linear reads, truncated ORFs allowed, default start
+codons). The six-frame ICM
 log-probs come from ``ops.icm_cuda`` and stay on the device; the ORF and
 start-candidate frontend, event assembly (here), the windowed event-graph
 DP and the traceback (``ops.event_dp``) run as tensor code on the same
@@ -35,6 +36,15 @@ MAX_GENES = 48
 
 # Event type codes (engine.events: INITIAL=0 .. TERMINAL=5)
 E_FWD_START, E_FWD_STOP, E_REV_START, E_REV_STOP = 1, 2, 3, 4
+
+# Quality -> base-call probability table for Pass_Stop_Penalty
+# (glimmer-mg.cc:961: p = 1 - 10^(-q/10)), built with Python pow so the
+# entries equal the host engine's floats. Index 255 is the sentinel of
+# rows without a quality file and holds the default 0.999.
+_CP_TAB = np.array(
+    [1.0 - 10.0 ** (-q / 10.0) for q in range(255)] + [0.999],
+    dtype=np.float64,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -405,16 +415,21 @@ def _sel6(cols, ti):
 
 
 def predict_batch_device(bank: DeviceBank, dev_bank: dict, reads, lengths,
-                         groups, gene6, ind6, *, f64: bool = True):
+                         groups, gene6, ind6, *, f64: bool = True,
+                         subs: bool = False, quals=None):
     """Predict genes for a padded read batch on the batch's device.
 
     reads (B, L) int32, lengths (B,), groups (B,) bank indices, gene6/ind6
     (B, 6, L) f32 six-frame outputs, all tensors on one device; dev_bank is
     ``bank_to_device(bank, device)`` for that device. ``f64=False``
-    carries event scores in f32 instead of f64. Returns host numpy arrays
-    (g_id, g_stop, g_len, g_sign, g_trunc, g_score, g_epos, g_etyp, cnt,
-    n_flag); n_flag is the event count, or MAX_EVENTS + 1 for reads the
-    DP's row window could not serve.
+    carries event scores in f32 instead of f64. ``subs`` turns on the
+    substitution mode (stop codons passed through at a penalty); ``quals``
+    (B, L) uint8 per-base qualities, 255 in rows without a quality file,
+    switches its penalty to the per-position quality form and is read
+    only in that mode. Returns host numpy arrays (g_id, g_stop, g_len,
+    g_sign, g_trunc, g_score, g_epos, g_etyp, cnt, n_flag); g_epos/g_etyp
+    is a gene's substitution record (-1 for none), n_flag the event count,
+    or MAX_EVENTS + 1 for reads the DP's row window could not serve.
     """
     from . import event_dp, frontend
 
@@ -427,26 +442,28 @@ def predict_batch_device(bank: DeviceBank, dev_bank: dict, reads, lengths,
         start_threshold=bank.start_threshold,
         ws=bank.ribosome_window, W=bank.pwm_w,
         fdt=torch.float64 if f64 else torch.float32,
+        subs=bool(subs),
     )
     reads = torch.nn.functional.pad(reads.to(torch.int32), (0, pad))
     gene6 = torch.nn.functional.pad(gene6, (0, pad))
     ind6 = torch.nn.functional.pad(ind6, (0, pad))
     lengths = lengths.to(torch.int32)
     groups = groups.to(torch.int32)
+    q = None
+    if subs and quals is not None:
+        q = torch.nn.functional.pad(quals.to(torch.uint8), (0, pad),
+                                    value=255)
 
     max_events = MAX_EVENTS
     ev, n_events = frontend.frontend(reads, lengths, groups, gene6, ind6,
-                                     dev_bank, Lp, consts, max_events)
+                                     dev_bank, Lp, consts, max_events,
+                                     quals=q)
     ne = torch.clamp(n_events, max=max_events)
     adj = event_dp._prefetch_adj(dev_bank, groups)
     score, bp, best, wovf = event_dp.event_dp_batched(ev, adj, consts, ne)
-    g_id, g_stop, g_len, g_sign, g_trunc, g_score, cnt = \
-        event_dp.traceback_batched(ev, score, bp, best, ne)
+    genes = event_dp.traceback_batched(ev, score, bp, best, ne)
     n_flag = torch.where(wovf, max_events + 1, n_events).to(torch.int32)
-    no_err = torch.full_like(g_id, -1)
-    outs = (g_id, g_stop, g_len, g_sign, g_trunc, g_score, no_err, no_err,
-            cnt, n_flag)
-    return [x.cpu().numpy() for x in outs]
+    return [x.cpu().numpy() for x in (*genes, n_flag)]
 
 
 def finish_genes(outs, n_reads: int):

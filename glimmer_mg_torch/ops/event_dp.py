@@ -189,6 +189,7 @@ def event_dp_batched(ev, adj, consts, ne):
     B, E = ev["pos"].shape
     W = min(WINDOW_ROWS, E)
     pos, typ, sub, eid = ev["pos"], ev["typ"], ev["sub"], ev["id"]
+    errp = ev.get("err_pos")
     dev = pos.device
     max_olap = consts["max_olap"]
     je2 = torch.arange(E, dtype=I32, device=dev)[None, :]
@@ -274,6 +275,14 @@ def event_dp_batched(ev, adj, consts, ne):
         opener_w = (typ_w == E_FWD_START) | (typ_w == E_REV_STOP)
         cand_w = (do[:, None] & window_w & ~disq[:, wlo:wlo + W] & opener_w
                   & (needed_w < score_e[:, None]))
+        if errp is not None:
+            # no re-link whose error position overlaps the other event's
+            # span (glimmer_base.cc:1726-1896)
+            errp_e = errp[:, e][:, None]
+            errp_w = errp[:, wlo:wlo + W]
+            ov = (((errp_e >= 0) & (pos_w - 2 <= errp_e))
+                  | ((errp_w >= 0) & (errp_w <= pos_e[:, None])))
+            cand_w = cand_w & ~ov
 
         succ_fs_w = typ_w == E_FWD_START
         oo_w = _adj_or_b(adj, bptyp_w, succ_fs_w)
@@ -309,9 +318,13 @@ def event_dp_batched(ev, adj, consts, ne):
 
 def traceback_batched(ev, score, bp, best, ne):
     """Set_Final_Event + Trace_Back over (B, E): raw gene records (id,
-    stop, len, sign, trunc, score) in traceback order, per read."""
+    stop, len, sign, trunc, score, error position, error type) in
+    traceback order, per read, and the gene count. A forward gene carries
+    its FWD_START event's error record, a reverse gene the one latched at
+    its REV_START (glimmer3.cc:1631); -1 where there is none."""
     B, E = ev["pos"].shape
     pos, typ, eid, trunc = ev["pos"], ev["typ"], ev["id"], ev["trunc"]
+    epos, etyp = ev.get("err_pos"), ev.get("err_typ")
     dev = pos.device
     zS = torch.zeros((), dtype=score.dtype, device=dev)
 
@@ -333,6 +346,10 @@ def traceback_batched(ev, score, bp, best, ne):
     g_id, g_stop, g_len, g_sign = (zg.clone() for _ in range(4))
     g_trunc = torch.zeros((B, MAX_GENES), dtype=torch.bool, device=dev)
     g_score = torch.zeros((B, MAX_GENES), dtype=score.dtype, device=dev)
+    g_epos, g_etyp = (torch.full((B, MAX_GENES), -1, dtype=I32, device=dev)
+                      for _ in range(2))
+    rev_epos, rev_etyp = (torch.full((B,), -1, dtype=I32, device=dev)
+                          for _ in range(2))
     cnt = zi.clone()
     rows = torch.arange(B, device=dev)
 
@@ -358,18 +375,26 @@ def traceback_batched(ev, score, bp, best, ne):
         rec_score = torch.where(emit_f, score_p - score_bpp,
                                 prev_score - score_p)
 
+        recs = [(g_id, _oh_at(eid, p)), (g_stop, rec_stop), (g_len, rec_len),
+                (g_sign, rec_sign), (g_trunc, rec_trunc),
+                (g_score, rec_score)]
+        is_rs = tp == E_REV_START
+        if epos is not None:
+            epos_p, etyp_p = _oh_at(epos, p), _oh_at(etyp, p)
+            recs += [(g_epos, torch.where(emit_f, epos_p, rev_epos)),
+                     (g_etyp, torch.where(emit_f, etyp_p, rev_etyp))]
+            rev_epos = torch.where(is_rs, epos_p, rev_epos)
+            rev_etyp = torch.where(is_rs, etyp_p, rev_etyp)
         slot = cnt.clamp(0, MAX_GENES - 1).long()
-        for g, rec in ((g_id, _oh_at(eid, p)), (g_stop, rec_stop),
-                       (g_len, rec_len), (g_sign, rec_sign),
-                       (g_trunc, rec_trunc), (g_score, rec_score)):
+        for g, rec in recs:
             g[rows, slot] = torch.where(emit, rec.to(g.dtype), g[rows, slot])
         cnt = cnt + emit.to(I32)
 
-        is_rs = tp == E_REV_START
         cur_stop = torch.where((tp == E_FWD_STOP) | emit_r, pos_p - 2,
                                cur_stop)
         rev_start_pos = torch.where(is_rs, pos_p, rev_start_pos)
         prev_score = torch.where(is_rs, score_p, prev_score)
         rev_trunc = torch.where(is_rs, trunc_p, rev_trunc)
         p = torch.where(active, bpp, p)
-    return g_id, g_stop, g_len, g_sign, g_trunc, g_score, cnt
+    return (g_id, g_stop, g_len, g_sign, g_trunc, g_score, g_epos, g_etyp,
+            cnt)

@@ -12,24 +12,88 @@ Reference anchors (behavioural spec):
   Add_Events_Fwd / Add_Events_Rev    glimmer_base.cc:43-263
   Add_PWM_Score                      glimmer_base.cc:267-295
   PWM_Meta_Score_Fwd/Rev_Start       glimmer-mg.cc:1900-2060
+  Pass_Stop_Penalty                  glimmer-mg.cc:961
+
+In substitution mode (``consts["subs"]``) each strand gains two candidate
+families: starts whose gene runs through a stop codon, taken as a
+sequencing error at a penalty, into the next ORF of the same frame. Such
+a candidate's error record rides its event (``err_pos``/``err_typ``), and
+each (ORF, error set) gets its own id and stop event.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .device_predict import (
-    BIG, E_FWD_START, E_FWD_STOP, E_REV_START, E_REV_STOP, _cls3_cummax,
-    _cls3_cumsum, _cls3_fwdfill, _cls3_revcummin, _cls3_revfill, _gather2,
-    _gather_guard, _sel3, _shift_left, _shift_right,
+    BIG, E_FWD_START, E_FWD_STOP, E_REV_START, E_REV_STOP, _CP_TAB,
+    _cls3_cummax, _cls3_cumsum, _cls3_fwdfill, _cls3_revcummin,
+    _cls3_revfill, _full, _gather2, _gather_guard, _sel3, _shift_left,
+    _shift_right,
 )
 
 I32 = torch.int32
 NEG_INF = float("-inf")
+# engine.mg_host.MIN_INDEL_ORF_LEN: the error modes keep ORFs this long
+MIN_INDEL_ORF_LEN = 15
+# error type of a substitution record (engine.mg_host.Error)
+ERR_SUB = 2
 
 
 def _ar(n, device):
     return torch.arange(n, dtype=I32, device=device)
+
+
+def _zero(x):
+    return _full(x, (), 0)
+
+
+def _stop_penalty(mid_x, last_x, quals, fwd, fdt):
+    """Pass_Stop_Penalty (glimmer-mg.cc:961) of a stop codon read through
+    as a substitution, at every position x of its last base: (B, Lp) in
+    ``fdt``. ``mid_x``/``last_x`` flag the codon's middle and last base
+    (in the gene's direction) as the base the reference weighs up ('a'
+    forward, 't' reverse); ``quals`` (B, Lp) uint8 or None.
+
+    Without qualities the four possible values are Python floats, rounded
+    to ``fdt`` once, as the host computes them. With qualities the
+    per-base probabilities come from ``_CP_TAB`` and multiply in the
+    host's order; pp is clipped into (0, 1) so the extremes stay finite.
+    """
+    dev = mid_x.device
+
+    def const(v):
+        return torch.tensor(v, dtype=fdt, device=dev)
+
+    if quals is None:
+        dp = 0.999
+        fa = 2.0 / 3.0 * dp + 1.0 / 3.0
+
+        def pen(mid, last):
+            pp = dp * (fa if mid else dp) * (fa if last else dp)
+            return const(math.log(1.0 - pp) - math.log(pp))
+
+        return torch.where(
+            mid_x, torch.where(last_x, pen(True, True), pen(True, False)),
+            torch.where(last_x, pen(False, True), pen(False, False)))
+    cp = torch.as_tensor(_CP_TAB, device=dev).to(fdt)[quals.long()]
+    cp1 = _shift_right(cp, 1, 0.5)
+    cp0 = _shift_right(cp, 2, 0.5)
+    two3, one3 = const(2.0 / 3.0), const(1.0 / 3.0)
+
+    def fa_of(is_x, c):
+        return torch.where(is_x, two3 * c + one3, c)
+
+    # the codon is seq[x-2..x]; forward its first base is x-2, reverse x
+    if fwd:
+        pp = (cp0 * fa_of(mid_x, cp1)) * fa_of(last_x, cp)
+    else:
+        pp = (cp * fa_of(mid_x, cp1)) * fa_of(last_x, cp0)
+    fi = torch.finfo(fdt)
+    pp = pp.clamp(min=fi.tiny, max=1.0 - fi.eps / 2)
+    return torch.log(1.0 - pp) - torch.log(pp)
 
 
 def _read_tables(seq, n, gi, bank):
@@ -89,10 +153,13 @@ def _cat(a, b, B, Lp):
     return torch.cat([a.expand(B, Lp), b.expand(B, 3)], dim=1)
 
 
-def _fwd_orf_slots(t, n, Lp, min_gene_len):
+def _fwd_orf_slots(t, n, Lp, min_gene_len, indel_orfs=False):
     """Forward-ORF candidate slots: Lp real (by stop last-base subscript)
     + 3 virtual truncated stops at subscripts n..n+2 (Do_Fwd_Stop_Codon /
-    Handle_First_Forward_Stop, glimmer_base.cc:461-506, 946-974)."""
+    Handle_First_Forward_Stop, glimmer_base.cc:461-506, 946-974).
+    ``indel_orfs`` (the error modes) also keeps ORFs too short for a gene
+    whose frame length reaches MIN_INDEL_ORF_LEN (the host find_orfs
+    keep_len rule)."""
     B = n.shape[0]
     dev = n.device
     n2 = n[:, None]
@@ -128,7 +195,10 @@ def _fwd_orf_slots(t, n, Lp, min_gene_len):
         gl = torch.where(s_star < iS, iS - s_star, 0)
         ol = torch.where(has_prev, iS - ip - 3, (iS - 2) - ((iS - 2) % 3))
         gl = torch.where((~has_prev) & (gl < min_gene_len), ol, gl)
-        return slot_exists & (gl >= min_gene_len)
+        keep = gl >= min_gene_len
+        if indel_orfs:
+            keep = keep | (ol >= MIN_INDEL_ORF_LEN)
+        return slot_exists & keep
 
     emit_r = gene_emit(iS_r, ip_r, has_prev_r, s_star_r, stop_m)
     emit_v = gene_emit(iS_v, ip_v, has_prev_v, s_star_v, True)
@@ -159,11 +229,12 @@ def _fwd_orf_slots(t, n, Lp, min_gene_len):
     }
 
 
-def _rev_orf_slots(t, n, Lp, min_gene_len):
+def _rev_orf_slots(t, n, Lp, min_gene_len, indel_orfs=False):
     """Reverse-ORF candidate slots: Lp real (closing rev-stop subscript)
     + 3 end-of-sequence slots (frame classes 0..2) (Do_Rev_Stop_Codon /
     Handle_First_Reverse_Stop / Finish_Orfs, glimmer_base.cc:509-539,
-    978-1000, 783-806; allow_truncated linear)."""
+    978-1000, 783-806; allow_truncated linear). ``indel_orfs`` as in
+    :func:`_fwd_orf_slots`."""
     B = n.shape[0]
     dev = n.device
     n2 = n[:, None]
@@ -199,6 +270,9 @@ def _rev_orf_slots(t, n, Lp, min_gene_len):
     end_orf_len = end_orf_len - end_orf_len % 3
     gl_v = torch.where(gl_v < min_gene_len, end_orf_len, gl_v)
     keep_v = gl_v >= min_gene_len
+    if indel_orfs:
+        keep_r = keep_r | (pos - orf_stop_r - 4 >= MIN_INDEL_ORF_LEN)
+        keep_v = keep_v | (end_orf_len >= MIN_INDEL_ORF_LEN)
     emit_r = stop_m & keep_r
     emit_v = keep_v
 
@@ -464,15 +538,17 @@ def _group_tables(bank, gi, fdt):
             len_tab.shape[2], bank["start_lo"][gil])
 
 
-def _start_candidates_fwd(t, fw, n, Lp, gi, bank, Sf, pw, consts):
+def _start_candidates_fwd(t, fw, n, Lp, gi, bank, Sf, pw, consts, seq=None,
+                          quals=None):
     """Forward-strand start-event candidates.
 
     Two families: one per read position q (the start codon's first base)
     and one 'truncated first start' per 5'-truncated forward ORF (the
     unconditional top-of-ORF start of Score_Orf_Starts,
-    glimmer-mg.cc:1769-1800). Returns (std, tr, ex_raw, any_ev): the
-    families' event fields and the per-slot aggregates "some start's raw
-    score beats start_threshold" and "some start became an event".
+    glimmer-mg.cc:1769-1800). Returns (std, tr, ex_raw, any_ev, subx):
+    the families' event fields, the per-slot aggregates "some start's raw
+    score beats start_threshold" and "some start became an event", and in
+    substitution mode the sub-extension families (else None).
     """
     min_gene_len = consts["min_gene_len"]
     min_j = max(min(3, min_gene_len - 3), min_gene_len - 3)
@@ -528,7 +604,8 @@ def _start_candidates_fwd(t, fw, n, Lp, gi, bank, Sf, pw, consts):
                     torch.where(xm3 == 1, Sf[:, 1, :], Sf[:, 2, :]))
     A_pos = _shift_right(R, 3, 0.0)             # A[p] = Sf[p%3, p-3]
     a_virt = _gather2(Sf, (n2 + j3) % 3, n2 + j3 - 3, 0.0)
-    a = prop(torch.cat([A_pos, a_virt], dim=1))
+    A_ext = torch.cat([A_pos, a_virt], dim=1)
+    a = prop(A_ext)
     raw_nb = a - _shift_left(R, 2, 0.0)         # - Sf[c, q+2]
     raw = torch.where(j + 2 > isl, raw_nb.clamp(min=0.0), raw_nb)
 
@@ -559,8 +636,9 @@ def _start_candidates_fwd(t, fw, n, Lp, gi, bank, Sf, pw, consts):
         return torch.gather(arr, 1, slot6c.long())
 
     s_hi, s_mm, s_top = g6(fw["hi"]), g6(fw["mm"]), g6(fw["top_j"])
-    tr_valid = (g6(fw["emit"]) & valid6 & g6(fw["orf_trunc"])
-                & (s_mm >= 1) & (s_top >= min_j))
+    s_trunc = g6(fw["orf_trunc"])
+    tr_valid = (g6(fw["emit"]) & valid6 & s_trunc & (s_mm >= 1)
+                & (s_top >= min_j))
     q_t = s_hi - 3 - s_top
     cS = g6(fw["iS"]) % 3
     raw_t_nb = (_gather2(Sf, cS, s_hi - 1, 0.0)
@@ -602,12 +680,122 @@ def _start_candidates_fwd(t, fw, n, Lp, gi, bank, Sf, pw, consts):
     tr = {"valid": tr_final, "pos": pos_t, "score": score_t, "slot": slot6c,
           "trunc": torch.ones((B, 6), dtype=torch.bool, device=dev),
           "sub": (cS + 1) % 3}
-    return std, tr, ex_raw, any_ev
+    if not consts.get("subs"):
+        return std, tr, ex_raw, any_ev, None
+
+    # ---- substitution extension (Score_Orf_Starts' error branch,
+    # glimmer-mg.cc:1769): a start of ORF s2 reads through s2's previous
+    # stop s1 into s1's own run, so its candidates are this chain's
+    # positions of run(s1) with suffix terms read from the NEXT slot ----
+    lowest_j = min(3, min_gene_len - 3)
+    posI = q.expand(B, Lp)
+    rfp, okp = _cls3_revfill(torch.where(stop_m, posI, 0), stop_m)
+    ns2 = _shift_left(torch.where(okp, rfp, 0), 3, 0)
+    has_next = _shift_left(okp, 3, False)
+    vclsx = (q - n2) % 3                      # virtual slot of x's class
+    ns2_eff = torch.where(has_next, ns2, n2 + vclsx)
+    mm2 = ns2_eff - q - 3                     # suffix length at x = s1
+
+    def nxt(F):
+        """Per-slot F (B, Lp + 3) of the next slot, read at a stop x."""
+        z = _zero(F)
+        G, ok = _cls3_revfill(torch.where(stop_m, F[:, :Lp], z), stop_m)
+        Gv = _shift_left(torch.where(ok, G, z), 3, 0)
+        return torch.where(_shift_left(ok, 3, False), Gv,
+                           _sel3(F[:, Lp:], vclsx))
+
+    emit2 = nxt(fw["emit"])
+    a2 = nxt(A_ext)                           # Sf[c, hi(s2)-1] at x = s1
+    t32 = ~has_next                           # s2 virtual <=> t3(s2)
+    pen_pos = _stop_penalty(_shift_right(seq == 0, 1, False), seq == 0,
+                            quals, True, fdt)
+    suf_pos = pen_pos + (a2 - R)              # penalty + seg(s2)'s score
+
+    def prop0(Fpos):
+        rf, ok = _cls3_revfill(_shift_left(Fpos, 5, 0), Vv)
+        return torch.where(ok, rf, _zero(Fpos))
+
+    sj_q, suf_q, em2_q, t32_q = (prop0(x) for x in (mm2, suf_pos, emit2,
+                                                     t32))
+    min_j_sub = torch.clamp(min_gene_len - 3 - sj_q, min=lowest_j)
+    jf = j + 2 + sj_q
+    sub_valid = (is_real & em2_q & (q >= lo) & (j >= min_j_sub)
+                 & (j <= top_j) & hit2 & (1 + jf >= min_gene_len))
+    raw_tot = raw_nb + suf_q
+    raw_tot = torch.where(jf > isl, raw_tot.clamp(min=0.0), raw_tot)
+    score_sub = _score_tail(
+        raw_tot, prior, pwm, sep, len_tab, torch.where(t32_q, 1, 0),
+        torch.clamp(torch.div(j + sj_q, 3, rounding_mode="floor") + 1, 0,
+                    LN - 1),
+        which, start_lo3)
+    sub_pass = sub_valid & (score_sub > ev_thresh)
+
+    # truncated sub entries: a truncated segment 2 is the first run of a
+    # class chain, so 3 columns at s1 = first_stop, credited to its next
+    # slot s2
+    def g3t(arr):
+        return torch.gather(arr, 1, first_stop.clamp(0, Lp - 1).long())
+
+    sjs6, sufs6, em26, t326 = (g3t(x) for x in (mm2, suf_pos, emit2, t32))
+    s2slot6 = g3t(torch.where(has_next, ns2, Lp + vclsx))
+    q_t3, s_top3 = q_t[:, :3], s_top[:, :3]
+    minj6 = torch.clamp(min_gene_len - 3 - sjs6, min=lowest_j)
+    jf6 = s_top3 + 2 + sjs6
+    subtr_valid = (has_first & em26 & s_trunc[:, :3] & (s_mm[:, :3] >= 1)
+                   & (s_top3 >= minj6) & (1 + jf6 >= min_gene_len))
+    raw6 = raw_t_nb[:, :3] + sufs6
+    raw6 = torch.where(jf6 > isl, raw6.clamp(min=0.0), raw6)
+    score6 = _score_tail(
+        raw6, prior, pwm_t[:, :3], sep_t[:, :3], len_tab,
+        torch.where(t326, 2, 1),
+        torch.clamp(torch.div(s_top3 + sjs6, 3, rounding_mode="floor") + 1,
+                    0, LN - 1))
+    subtr_pass = subtr_valid & (score6 > ev_thresh)
+    sub_final, subtr_final = _dedup(sub_pass, score_sub, q, q_t3, subtr_pass,
+                                    score6)
+
+    # per-slot aggregates of the sub set: counted over run(s1), read at
+    # s2 through its previous stop
+    def prev_slot_read(Fpos):
+        z = _zero(Fpos)
+        FFv, FFok = _cls3_fwdfill(torch.where(stop_m, Fpos, z), stop_m)
+        vals = torch.where(FFok, FFv, z)
+        return torch.cat([_shift_right(vals, 3, 0),
+                          _sel3(vals[:, Lp - 3:], xn3 % 3)], dim=1)
+
+    ex_sub = prev_slot_read(seg_exists(sub_valid & (raw_tot > thresh))
+                            [:, :Lp].to(I32)) > 0
+    any_sub = prev_slot_read(seg_exists(sub_final)[:, :Lp].to(I32)) > 0
+    sNS = _ar(Lp + 3, dev)[None, :]
+    subtr_raw6 = subtr_valid & (raw6 > thresh)
+    for k in range(3):
+        hitk = (sNS == s2slot6[:, k:k + 1]) & has_first[:, k:k + 1]
+        ex_sub = ex_sub | (hitk & subtr_raw6[:, k:k + 1])
+        any_sub = any_sub | (hitk & subtr_final[:, k:k + 1])
+
+    subx = {
+        "fam_std": {"valid": sub_final, "pos": pos, "score": score_sub,
+                    "trunc": std["trunc"], "sub": std["sub"],
+                    "err_pos": (iS - 1).expand(B, Lp)},
+        "fam_tr": {"valid": subtr_final, "pos": q_t3 + 3, "score": score6,
+                   "trunc": torch.ones((B, 3), dtype=torch.bool, device=dev),
+                   "sub": (cS[:, :3] + 1) % 3,
+                   "err_pos": torch.where(has_first, first_stop - 1, -1)},
+        "any_sub": any_sub, "any_clean": any_ev,
+        "to_member": lambda F: prop(torch.cat(
+            [nxt(F), _full(F, (B, 3), 0)], dim=1)),
+        "s2slot6": s2slot6.clamp(0, Lp + 2), "s2slot6_valid": has_first,
+        "err_pos_stop": prev_slot_read(posI) - 1,   # s1 - 1 per slot s2
+    }
+    return std, tr, ex_raw | ex_sub, any_ev | any_sub, subx
 
 
-def _start_candidates_rev(t, rv, n, Lp, gi, bank, Sr, pw, consts):
+def _start_candidates_rev(t, rv, n, Lp, gi, bank, Sr, pw, consts, seq=None,
+                          quals=None):
     """Reverse-strand start-event candidates (mirror of the forward case;
-    candidate index u = the genome codon's LAST base of a reverse start)."""
+    candidate index u = the genome codon's LAST base of a reverse start).
+    In substitution mode an ORF extends RIGHT through its closing stop
+    into the next slot's run."""
     min_gene_len = consts["min_gene_len"]
     min_j = max(min(3, min_gene_len - 3), min_gene_len - 3)
     ev_thresh = consts["event_threshold"]
@@ -665,7 +853,8 @@ def _start_candidates_rev(t, rv, n, Lp, gi, bank, Sr, pw, consts):
     FF2v, FF2ok = _cls3_fwdfill(torch.where(stop_m, Rr, 0.0), stop_m)
     b_np = torch.stack(
         [Sr[:, 0, 0], Sr[:, 1, 1], torch.zeros_like(Sr[:, 0, 0])], dim=1)
-    raw_nb = a - torch.where(FF2ok, FF2v, _sel3(b_np, c))
+    b = torch.where(FF2ok, FF2v, _sel3(b_np, c))
+    raw_nb = a - b
     raw = torch.where(j + 2 > isl, raw_nb.clamp(min=0.0), raw_nb)
 
     pos = (u + 1).expand(B, Lp)  # REV_START event position
@@ -695,8 +884,9 @@ def _start_candidates_rev(t, rv, n, Lp, gi, bank, Sr, pw, consts):
         return torch.gather(arr, 1, slot6c.long())
 
     s_lo, s_mm, s_top = g6(rv["lo"]), g6(rv["mm"]), g6(rv["top_j"])
-    tr_valid = (g6(rv["emit"]) & valid6 & g6(rv["orf_trunc"])
-                & (s_mm >= 1) & (s_top >= min_j))
+    s_trunc = g6(rv["orf_trunc"])
+    tr_valid = (g6(rv["emit"]) & valid6 & s_trunc & (s_mm >= 1)
+                & (s_top >= min_j))
     u_t = s_lo + s_top + 1
     cS = (s_lo + 1) % 3  # the ORF's stop-subscript class
     raw_t_nb = (_gather2(Sr, cS, s_lo - 2 + s_top, 0.0)
@@ -737,7 +927,102 @@ def _start_candidates_rev(t, rv, n, Lp, gi, bank, Sr, pw, consts):
     tr = {"valid": tr_final, "pos": pos_t, "score": score_t, "slot": slot6c,
           "trunc": torch.ones((B, 6), dtype=torch.bool, device=dev),
           "sub": 3 + (cslot6 + 1) % 3}
-    return std, tr, ex_raw, any_ev
+    if not consts.get("subs"):
+        return std, tr, ex_raw, any_ev, None
+
+    # ---- substitution extension, reverse strand: ORF s2 extends RIGHT
+    # past its closing stop s into the NEXT slot's run; every member value
+    # of s2 is a class forward-fill read at the member's previous stop ----
+    lowest_j = min(3, min_gene_len - 3)
+
+    def prevread(Fpos):
+        z = _zero(Fpos)
+        FFx, FFxok = _cls3_fwdfill(torch.where(stop_m, Fpos, z), stop_m)
+        return torch.where(FFxok, FFx, z)
+
+    emit2_u = prevread(rv["emit"][:, :Lp])
+    sj_u = prevread(rv["mm"][:, :Lp])
+    t32_u = prevread(rv["t3"][:, :Lp])
+    total_pos = a - _shift_right(b, 3, 0.0)    # seg(s2)'s score at s
+    pen_pos = _stop_penalty(_shift_right(seq == 3, 1, False),
+                            _shift_right(seq == 3, 2, False), quals, False,
+                            fdt)
+    suf_pos = pen_pos + total_pos
+    suf_u = prevread(suf_pos)
+
+    min_j_sub = torch.clamp(min_gene_len - 3 - sj_u, min=lowest_j)
+    jf = j + 2 + sj_u
+    sub_valid = (has_prev & emit2_u & t["is_rev_start"] & (j >= min_j_sub)
+                 & (j <= top_j) & (u <= hi - 2) & (1 + jf >= min_gene_len))
+    raw_tot = raw_nb + suf_u
+    raw_tot = torch.where(jf > isl, raw_tot.clamp(min=0.0), raw_tot)
+    score_sub = _score_tail(
+        raw_tot, prior, pwm, sep, len_tab, torch.where(t32_u, 1, 0),
+        torch.clamp(torch.div(j + sj_u, 3, rounding_mode="floor") + 1, 0,
+                    LN - 1),
+        which, start_lo3)
+    sub_pass = sub_valid & (score_sub > ev_thresh)
+
+    # truncated sub entries: a truncated segment 2 is exactly one of the
+    # 6 tr columns (its s3); s2 is each one's PREVIOUS slot
+    pp3 = _gather_guard(t["pstop_r"], last_stop.clamp(0, Lp - 1) - 3, -BIG)
+    pp3ok = has_last & (pp3 > -BIG // 2)
+    s2slot6 = torch.cat([torch.where(pp3ok, pp3, 0),
+                         torch.where(has_last, last_stop, 0)], dim=1)
+    s2ok6 = torch.cat([pp3ok, has_last], dim=1)
+
+    def g6s(arr):
+        return torch.gather(arr, 1, s2slot6.long())
+
+    emit26 = g6s(rv["emit"]) & s2ok6
+    sjs6, t326 = g6s(rv["mm"]), g6s(rv["t3"])
+    suf6 = _gather_guard(suf_pos, s2slot6, 0.0)
+    minj6 = torch.clamp(min_gene_len - 3 - sjs6, min=lowest_j)
+    jf6 = s_top + 2 + sjs6
+    subtr_valid = (s2ok6 & emit26 & s_trunc & (s_mm >= 1)
+                   & (s_top >= minj6) & (1 + jf6 >= min_gene_len))
+    raw6 = raw_t_nb + suf6
+    raw6 = torch.where(jf6 > isl, raw6.clamp(min=0.0), raw6)
+    score6 = _score_tail(
+        raw6, prior, pwm_t, sep_t, len_tab, torch.where(t326, 2, 1),
+        torch.clamp(torch.div(s_top + sjs6, 3, rounding_mode="floor") + 1,
+                    0, LN - 1))
+    subtr_pass = subtr_valid & (score6 > ev_thresh)
+    sub_final, subtr_final = _dedup(sub_pass, score_sub, u, u_t, subtr_pass,
+                                    score6)
+
+    # per-slot sub aggregates: counted over run(s3), read at slot s2
+    # through the next-slot relation; virtual s3 through the class columns
+    def nxt_r(F):
+        z = _zero(F)
+        G, ok = _cls3_revfill(torch.where(stop_m, F[:, :Lp], z), stop_m)
+        Gv = _shift_left(torch.where(ok, G, z), 3, 0)
+        part = torch.where(_shift_left(ok, 3, False), Gv,
+                           _sel3(F[:, Lp:], c.expand(B, Lp)))
+        return torch.cat([part, _full(part, (B, 3), 0)], dim=1)
+
+    ex_sub = nxt_r(seg_exists(sub_valid & (raw_tot > thresh)))
+    any_sub = nxt_r(seg_exists(sub_final))
+    sNS = _ar(Lp + 3, dev)[None, :]
+    subtr_raw6 = subtr_valid & (raw6 > thresh)
+    for k in range(6):
+        hit = (sNS == s2slot6[:, k:k + 1]) & s2ok6[:, k:k + 1]
+        ex_sub = ex_sub | (hit & subtr_raw6[:, k:k + 1])
+        any_sub = any_sub | (hit & subtr_final[:, k:k + 1])
+
+    subx = {
+        "fam_std": {"valid": sub_final, "pos": pos, "score": score_sub,
+                    "trunc": std["trunc"], "sub": std["sub"],
+                    "err_pos": ip_m + 1},
+        "fam_tr": {"valid": subtr_final, "pos": pos_t, "score": score6,
+                   "trunc": tr["trunc"], "sub": tr["sub"],
+                   "err_pos": torch.where(s2ok6, s2slot6 + 1, -1)},
+        "any_sub": any_sub, "any_clean": any_ev,
+        "to_member": lambda F: prevread(F[:, :Lp]),
+        "s2slot6": s2slot6.clamp(0, Lp + 2), "s2slot6_valid": s2ok6,
+        "err_pos_stop": (sNS + 1).expand(B, Lp + 3),  # rev error at s + 1
+    }
+    return std, tr, ex_raw | ex_sub, any_ev | any_sub, subx
 
 
 # ---------------------------------------------------------------------------
@@ -745,32 +1030,56 @@ def _start_candidates_rev(t, rv, n, Lp, gi, bank, Sr, pw, consts):
 # ---------------------------------------------------------------------------
 
 
-def _assign_ids(fw, rv, evprod_f, evprod_r, Lp):
-    """Event-set ids: rank of each ORF in the reference's processing order
-    (the ids of the .predict orfNNNNN column)."""
+def _assign_ids(fw, rv, evprod_f, evprod_r, Lp, sub_f, sub_r):
+    """Event-set ids: rank of each (ORF, error set) in the reference's
+    processing order (the ids of the .predict orfNNNNN column). Returns
+    (clean fwd, clean rev, sub fwd, sub rev) ids; ``sub_f``/``sub_r``
+    are all False in error-free mode.
+
+    Add_Events gives one id per error set present, in the order of each
+    set's first event position: the forward sub-extended set lies LEFT of
+    the clean segment (ranked first), the reverse one RIGHT of it (ranked
+    last). The scatter adds duplicates, like JAX's ``.at[].add``."""
     B = evprod_f.shape[0]
     kf = (fw["key"] * 2).long()
     kr = (rv["key"] * 2).long()
     keyarr = torch.zeros((B, 4 * Lp + 32), dtype=I32, device=kf.device)
-    keyarr.scatter_add_(1, kf, evprod_f.to(I32))
+    keyarr.scatter_add_(1, kf, sub_f.to(I32))
+    keyarr.scatter_add_(1, kf + 1, evprod_f.to(I32))
     keyarr.scatter_add_(1, kr, evprod_r.to(I32))
+    keyarr.scatter_add_(1, kr + 1, sub_r.to(I32))
     ranks = torch.cumsum(keyarr, dim=1).to(I32)
-    return torch.gather(ranks, 1, kf), torch.gather(ranks, 1, kr)
+    return (torch.gather(ranks, 1, kf + 1), torch.gather(ranks, 1, kr),
+            torch.gather(ranks, 1, kf), torch.gather(ranks, 1, kr + 1))
 
 
-def _assemble_events(fam, max_events):
+def _assemble_events(fam, max_events, ties=False):
     """Sort candidate families into the padded per-read event tensor.
 
-    Stable order: position, then family enumeration order (concatenation
-    order), so a stable sort on position alone gives pos-then-rank.
+    Error-free order: position, then family enumeration order
+    (concatenation order), so a stable sort on position alone gives
+    pos-then-rank. With ``ties`` (substitution mode) equal positions keep
+    the reference's event insertion order, each family's ``tiekey`` (ORF
+    processing rank and phase within the ORF): two stable sorts, the
+    tiekey first, then the position. Families with ``err_pos`` carry
+    ``err_pos``/``err_typ`` into the events.
     """
     def cat(key):
         return torch.cat([f[key] for f in fam], dim=-1)
 
     valid = cat("valid")
     pos = cat("pos").to(I32)
-    sort_key = torch.where(valid, pos, 2**30)
-    order = torch.argsort(sort_key, dim=-1, stable=True)[..., :max_events]
+    if ties:
+        p1 = torch.argsort(torch.where(valid, cat("tiekey").to(I32), 2**30),
+                           dim=-1, stable=True)
+        pos_p = torch.gather(pos, -1, p1)
+        valid_p = torch.gather(valid, -1, p1)
+        p2 = torch.argsort(torch.where(valid_p, pos_p, 2**30), dim=-1,
+                           stable=True)
+        order = torch.gather(p1, -1, p2)[..., :max_events]
+    else:
+        sort_key = torch.where(valid, pos, 2**30)
+        order = torch.argsort(sort_key, dim=-1, stable=True)[..., :max_events]
 
     def g(a):
         return torch.gather(a, -1, order)
@@ -783,33 +1092,51 @@ def _assemble_events(fam, max_events):
         "score": g(cat("score")),
         "trunc": g(cat("trunc")),
     }
+    if "err_pos" in fam[0]:
+        ev["err_pos"] = g(cat("err_pos").to(I32))
+        ev["err_typ"] = g(cat("err_typ").to(I32))
     n_events = torch.sum(valid.to(I32), dim=-1).to(I32)
     return ev, n_events
 
 
-def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events):
+def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
+             quals=None):
     """Batched candidate construction: ORF slots, start scoring, event
     assembly (everything before the event DP). seq (B, Lp), n/gi (B,),
-    gene6/ind6 (B, 6, Lp). Returns (ev of (B, E) tensors, n_events (B,))."""
+    gene6/ind6 (B, 6, Lp), quals (B, Lp) uint8 per-base qualities of the
+    substitution mode (``consts["subs"]``) or None. Returns (ev of (B, E)
+    tensors, n_events (B,))."""
     B = seq.shape[0]
     dev = seq.device
     fdt = consts["fdt"]
+    subs = bool(consts.get("subs"))
     t = _read_tables(seq, n, gi, bank)
-    fw = _fwd_orf_slots(t, n, Lp, consts["min_gene_len"])
-    rv = _rev_orf_slots(t, n, Lp, consts["min_gene_len"])
+    fw = _fwd_orf_slots(t, n, Lp, consts["min_gene_len"], indel_orfs=subs)
+    rv = _rev_orf_slots(t, n, Lp, consts["min_gene_len"], indel_orfs=subs)
     Sf, Sr = _frame_prefix_sums(gene6, ind6, n, Lp, fdt)
     pw = None
     if consts["W"]:
         pw = _pwm_window_tables(_pwm_arrays(seq, gi, bank, consts["W"], fdt),
                                 n, Lp, consts["ws"], consts["W"])
 
-    std_f, tr_f, braw_f, anyev_f = _start_candidates_fwd(
-        t, fw, n, Lp, gi, bank, Sf, pw, consts)
-    std_r, tr_r, braw_r, anyev_r = _start_candidates_rev(
-        t, rv, n, Lp, gi, bank, Sr, pw, consts)
+    std_f, tr_f, braw_f, anyev_f, subx_f = _start_candidates_fwd(
+        t, fw, n, Lp, gi, bank, Sf, pw, consts, seq, quals)
+    std_r, tr_r, braw_r, anyev_r, subx_r = _start_candidates_rev(
+        t, rv, n, Lp, gi, bank, Sr, pw, consts, seq, quals)
     evprod_f = fw["emit"] & braw_f & anyev_f
     evprod_r = rv["emit"] & braw_r & anyev_r
-    id_f, id_r = _assign_ids(fw, rv, evprod_f, evprod_r, Lp)
+    if subs:
+        # each (ORF, error set) present gets its own id and stop event
+        sub_ind_f = evprod_f & subx_f["any_sub"]
+        sub_ind_r = evprod_r & subx_r["any_sub"]
+        stop_f_valid = evprod_f & subx_f["any_clean"]
+        stop_r_valid = evprod_r & subx_r["any_clean"]
+    else:
+        sub_ind_f = torch.zeros_like(evprod_f)
+        sub_ind_r = torch.zeros_like(evprod_r)
+        stop_f_valid, stop_r_valid = evprod_f, evprod_r
+    id_f, id_r, id_sf, id_sr = _assign_ids(
+        fw, rv, stop_f_valid, stop_r_valid, Lp, sub_ind_f, sub_ind_r)
 
     n_slots = Lp + 3
     idx_slots = _ar(n_slots, dev)[None, :]
@@ -837,20 +1164,71 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events):
     def typ(code, w):
         return torch.full((B, w), code, dtype=I32, device=dev)
 
-    fams = [
+    sub_fs = (fw["iS"] % 3 + 1) % 3
+    sub_rs = (3 + (cslot_r + 1) % 3).expand(B, n_slots)
+    fam_f = [
         dict(std_f, valid=std_f["valid"] & prop_f(evprod_f),
              typ=typ(E_FWD_START, Lp), id=prop_f(id_f)),
         dict(tr_f, valid=tr_f["valid"] & taa(evprod_f, tr_f["slot"]),
              typ=typ(E_FWD_START, 6), id=taa(id_f, tr_f["slot"])),
-        dict(valid=evprod_f, pos=fw["stop_pos"] + 2, score=zsc,
-             sub=(fw["iS"] % 3 + 1) % 3, typ=typ(E_FWD_STOP, n_slots),
-             id=id_f, trunc=zb),
+        dict(valid=stop_f_valid, pos=fw["stop_pos"] + 2, score=zsc,
+             sub=sub_fs, typ=typ(E_FWD_STOP, n_slots), id=id_f, trunc=zb),
+    ]
+    fam_r = [
         dict(std_r, valid=std_r["valid"] & prop_r(evprod_r),
              typ=typ(E_REV_START, Lp), id=prop_r(id_r)),
         dict(tr_r, valid=tr_r["valid"] & taa(evprod_r, tr_r["slot"]),
              typ=typ(E_REV_START, 6), id=taa(id_r, tr_r["slot"])),
-        dict(valid=evprod_r, pos=rv["stop_pos"] + 2, score=zsc,
-             sub=(3 + (cslot_r + 1) % 3).expand(B, n_slots),
-             typ=typ(E_REV_STOP, n_slots), id=id_r, trunc=zb),
+        dict(valid=stop_r_valid, pos=rv["stop_pos"] + 2, score=zsc,
+             sub=sub_rs, typ=typ(E_REV_STOP, n_slots), id=id_r, trunc=zb),
     ]
-    return _assemble_events(fams, max_events)
+    if not subs:
+        return _assemble_events(fam_f + fam_r, max_events)
+
+    # within-ORF insertion phases for the equal-position order: forward
+    # inserts starts then stops, reverse stops then starts; a stop pair
+    # goes clean before sub
+    kf4, kr4 = fw["key"] * 4, rv["key"] * 4
+    for f, tk in zip(fam_f, (prop_f(kf4) + 1, taa(kf4, tr_f["slot"]) + 1,
+                             kf4 + 2)):
+        f["tiekey"] = tk
+    for f, tk in zip(fam_r, (prop_r(kr4) + 2, taa(kr4, tr_r["slot"]) + 2,
+                             kr4)):
+        f["tiekey"] = tk
+
+    def sub_fams(subx, evprod, id_s, k4, phase, typ_code):
+        """The sub-extension start families of one strand."""
+        to_m, s2 = subx["to_member"], subx["s2slot6"]
+        fs, ft = subx["fam_std"], subx["fam_tr"]
+        return [
+            dict(fs, valid=fs["valid"] & to_m(evprod),
+                 typ=typ(typ_code, fs["pos"].shape[1]), id=to_m(id_s),
+                 err_typ=ERR_SUB, tiekey=to_m(k4) + phase),
+            dict(ft, valid=ft["valid"] & subx["s2slot6_valid"]
+                 & taa(evprod, s2),
+                 typ=typ(typ_code, ft["pos"].shape[1]), id=taa(id_s, s2),
+                 err_typ=ERR_SUB, tiekey=taa(k4, s2) + phase),
+        ]
+
+    def sub_stop(subx, sub_ind, slots, sub, id_s, tiekey, typ_code):
+        return dict(valid=sub_ind, pos=slots["stop_pos"] + 2, score=zsc,
+                    sub=sub, typ=typ(typ_code, n_slots), id=id_s, trunc=zb,
+                    err_pos=subx["err_pos_stop"], err_typ=ERR_SUB,
+                    tiekey=tiekey)
+
+    # the reverse sub events belong to the PREVIOUS slot (processed first
+    # in the reference's ORF order), so at equal positions they enumerate
+    # before the clean families
+    fams = (fam_f[:2] + sub_fams(subx_f, evprod_f, id_sf, kf4, 1,
+                                 E_FWD_START)
+            + [fam_f[2], sub_stop(subx_f, sub_ind_f, fw, sub_fs, id_sf,
+                                  kf4 + 3, E_FWD_STOP)]
+            + sub_fams(subx_r, evprod_r, id_sr, kr4, 2, E_REV_START)
+            + fam_r + [sub_stop(subx_r, sub_ind_r, rv, sub_rs, id_sr,
+                                kr4 + 1, E_REV_STOP)])
+    for f in fams:
+        w = f["pos"].shape[1]
+        f.setdefault("err_pos", torch.full((B, w), -1, dtype=I32, device=dev))
+        f["err_typ"] = torch.full((B, w), f.get("err_typ", -1), dtype=I32,
+                                  device=dev)
+    return _assemble_events(fams, max_events, ties=True)

@@ -2,7 +2,9 @@
 
 Everything is made from numpy seeds: two synthetic genomes trained into a
 genomeData directory with ``train_all`` (the JAX package's own fixture
-pattern), and read sets of three kinds (random, overlap-dense, long).
+pattern), read sets (random, overlap-dense, long; for the error modes,
+genes with planted stop codons and 454-like homopolymer indels), quality
+maps, and the helpers that run the JAX package and compare outputs.
 """
 
 from __future__ import annotations
@@ -114,6 +116,75 @@ def long_reads(seed, count, lo=1450, hi=2100):
     return reads
 
 
+STOPS_FWD = ("taa", "tag", "tga")
+
+
+def planted_stop_reads(seed, count, lo=400, hi=510):
+    """Gene-dense reads on both strands, each gene (150-300 codons) with
+    one stop codon planted in its own frame, in the middle 40% of the
+    gene: a substitution that a sub-extended gene can read through."""
+    rng = np.random.default_rng(seed)
+    comp = str.maketrans("acgt", "tgca")
+    reads = []
+    for i in range(count):
+        gc = (0.38, 0.58)[i % 2]
+        n = int(rng.integers(lo, hi + 1))
+        parts, total = [], 0
+        while total < n:
+            parts.append("".join(rng.choice(list("acgt"),
+                                            int(rng.integers(5, 30)))))
+            ncod = int(rng.integers(150, 300))
+            g = list(_gene_like(rng, ncod, gc))
+            k = int(rng.integers(int(ncod * 0.3), int(ncod * 0.7)))
+            g[3 * k:3 * k + 3] = STOPS_FWD[int(rng.integers(3))]
+            g = "".join(g)
+            if rng.random() < 0.5:
+                g = g[::-1].translate(comp)
+            parts.append(g)
+            total = sum(len(p) for p in parts)
+        reads.append((f"ps{i}", "".join(parts)[:n]))
+    return reads
+
+
+def quality_map(reads, seed, every=3):
+    """Per-base qualities in [1, 87] for two reads in ``every`` (read
+    index % every != every - 1). The first read has 254 (the ceiling of
+    the device upload, p = 1.0 in f64) at every third base: a codon holds
+    one such base, so no stop penalty meets p_stop = 1, at which the host
+    engine's log raises."""
+    rng = np.random.default_rng(seed)
+    quals = {}
+    for i, (h, s) in enumerate(reads):
+        if i % every != every - 1:
+            quals[h] = [int(q) for q in rng.integers(1, 88, len(s))]
+    first, s0 = reads[0]
+    quals[first] = [254 if k % 3 == 0 else int(q)
+                    for k, q in enumerate(rng.integers(1, 88, len(s0)))]
+    return quals
+
+
+def homopolymer_indel_reads(seed, count, rate=0.003, lo=250, hi=500):
+    """454-like reads: gene-dense sequence with homopolymer indels, a base
+    inside a run dropped or repeated; runs hold about a quarter of the
+    bases, so they take 4 x ``rate`` each and the reads ``rate`` per
+    base."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i, (_h, s) in enumerate(overlap_dense_reads(seed + 2, count,
+                                                    length=hi + 20)):
+        out = []
+        for k, ch in enumerate(s):
+            r = rng.random() if k and s[k - 1] == ch else 1.0
+            if r < 2 * rate:
+                continue
+            out.append(ch)
+            if r < 4 * rate:
+                out.append(ch)
+        n = int(rng.integers(lo, hi + 1))
+        reads.append((f"hp{i}", "".join(out)[:n]))
+    return reads
+
+
 def class_map(reads, classes, pair_every=0):
     """Each read classified to one class (alternating); with pair_every=k,
     every k-th read also to the other class."""
@@ -156,6 +227,37 @@ def batch_inputs(reads, cmap, gd, l_pad, b_pad):
 
 def coords(genes):
     return [(g.id, g.start, g.stop, g.frame) for g in genes]
+
+
+def records(out):
+    """(header, [(id, start, stop, frame, ((pos, type), ...)), ...]) of a
+    prediction run's output."""
+    return [(h, [(g.id, g.start, g.stop, g.frame,
+                  tuple((e.pos, e.type) for e in g.errors)) for g in gs])
+            for h, gs in out]
+
+
+def sub_genes(out):
+    """Genes of a run's output that carry an error record."""
+    return sum(1 for _h, gs in out for g in gs if g.errors)
+
+
+def jax_run(fn, *args, device=False, f64=True, **kw):
+    """A JAX package prediction run: its exact host engine
+    (GLIMMER_MG_TPU_DEVICE_DP=0, GLIMMER_MG_TPU_NATIVE=0,
+    device_precompute=False) or, with ``device``, its device path. The
+    f32 carry (``f64=False``) is the device path traced without x64,
+    which tests/conftest.py enables globally. The variables are restored
+    after the run: the port's native engine reads the same switch."""
+    import jax
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GLIMMER_MG_TPU_NATIVE", "0")
+        mp.setenv("GLIMMER_MG_TPU_DEVICE_DP", "1" if device else "0")
+        if not f64:
+            mp.setenv("GLIMMER_MG_TPU_DEVICE_DP_F32", "1")
+        with jax.enable_x64(f64):
+            return list(fn(*args, device_precompute=False, **kw))
 
 
 # wrapper arguments with one out of range (bad_bank_walk_call cases)

@@ -5,8 +5,9 @@ device path (six-frame twin, frontend, event DP, traceback on CPU tensors)
 against the JAX package's exact host engine (GLIMMER_MG_TPU_DEVICE_DP=0,
 GLIMMER_MG_TPU_NATIVE=0, device_precompute=False): coordinates identical
 read for read and ``format_predict_mg`` text byte-identical. Also the
-routing counters, the overflow route to the host engine, the import
-without JAX, and that a CUDA request without a GPU raises.
+routing counters (error modes included), the overflow route to the host
+engine, the import without JAX, and that a CUDA request without a GPU
+raises.
 """
 
 import os
@@ -151,18 +152,25 @@ def test_host_engine_route_matches_jax_host_engine(classes_case):
 
 
 def test_error_modes_take_the_host_route(classes_case):
-    """Substitution mode is outside this slice's device path: every read
-    goes to the host engine, with the host engine's output."""
+    """Which route each error mode takes, counted: substitution reads go
+    to the device path, indel reads to the six-frame kernel + native
+    engine route, circular reads (outside both) to the exact host engine;
+    every route gives the JAX host engine's output."""
     gd, reads, cmap, _host_out = classes_case
-    sub = {h: cmap[h] for h, _s in reads[:10] if h in cmap}
-    host = _host(jmg.run_glimmer_mg_classes, reads[:10], gd, sub,
-                 allow_subs=True)
-    tmg.reset_counters()
-    got = list(tmg.run_glimmer_mg_classes(reads[:10], gd, sub, device="cpu",
-                                          allow_subs=True))
-    _assert_same(host, got)
-    assert tmg.counters["device_reads"] == 0
-    assert tmg.counters["host_reads"] == len(sub)
+    # overlap-dense reads: the reference's circular ORF scan needs reads
+    # longer than its wrap-around window
+    reads = reads[80:90]
+    sub = {h: cmap[h] for h, _s in reads if h in cmap}
+    for kw, route in (({"allow_subs": True}, "device_reads"),
+                      ({"allow_indels": True}, "native_reads"),
+                      ({"circular": True}, "host_reads")):
+        host = _host(jmg.run_glimmer_mg_classes, reads, gd, sub, **kw)
+        tmg.reset_counters()
+        got = list(tmg.run_glimmer_mg_classes(reads, gd, sub, device="cpu",
+                                              **kw))
+        _assert_same(host, got)
+        assert tmg.counters[route] == len(sub), (kw, tmg.counters)
+        assert sum(tmg.counters.values()) == len(sub), (kw, tmg.counters)
 
 
 def test_cuda_request_without_gpu_raises(classes_case):
@@ -181,7 +189,9 @@ def test_cuda_request_without_gpu_raises(classes_case):
 def test_port_imports_and_runs_without_jax(tmp_path):
     """With ``jax`` and ``glimmer_mg_tpu`` imports blocked, the port
     imports, trains an ICM with its own ``icm_train`` and predicts a few
-    reads on the CPU; it loads no module of either."""
+    reads on the CPU, error-free, in substitution mode with a quality
+    file and in indel mode (native engine); it loads no module of
+    either."""
     script = textwrap.dedent("""
         import sys
 
@@ -204,6 +214,15 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         reads = overlap_dense_reads(3, 6)
         out = list(tmg.run_glimmer_mg(reads, gicm, device="cpu"))
         assert len(out) == 6 and tmg.counters["device_reads"] > 0, tmg.counters
+        quals = {h: [30] * len(s) for h, s in reads[:3]}
+        tmg.reset_counters()
+        subs = list(tmg.run_glimmer_mg(reads, gicm, device="cpu",
+                                       allow_subs=True, qualities=quals))
+        assert len(subs) == 6 and tmg.counters["device_reads"] > 0
+        tmg.reset_counters()
+        indel = list(tmg.run_glimmer_mg(reads, gicm, device="cpu",
+                                        allow_indels=True))
+        assert len(indel) == 6 and tmg.counters["native_reads"] == 6
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
         assert not bad, bad

@@ -7,7 +7,8 @@ on a GPU machine with ``python -m pytest tests/test_torch_six_frame_cuda.py
 lengths, 16 model groups in random row order, with and without prob
 tables folded ahead; banks whose walks land on pruned nodes included.
 Out-of-range indices and bad folded tables must raise before a launch;
-and the slice end to end on the card must give the CPU run's output.
+and the slice end to end on the card, error modes included, must give
+the CPU run's output.
 """
 
 import numpy as np
@@ -178,5 +179,36 @@ def test_slice_on_card_matches_cpu(cuda):
     cpu = list(tmg.run_glimmer_mg(reads, gicm, device="cpu"))
     icm_cuda.reset_launches()
     gpu = list(tmg.run_glimmer_mg(reads, gicm, device=cuda))
+    assert icm_cuda.launches > 0
+    assert tmg.format_predict_mg(gpu) == tmg.format_predict_mg(cpu)
+
+
+@pytest.mark.parametrize("mode", ["subs", "subs_quality_file", "indels"])
+def test_error_modes_on_card_match_cpu(cuda, mode):
+    """Substitution mode (device path, with and without a quality file)
+    and indel mode (K1 on the card feeding the native engine) give the
+    CPU run's output, with K1 launched."""
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.models import dna, icm_train
+
+    from tests._torch_common import (
+        _gene_like, homopolymer_indel_reads, planted_stop_reads,
+        quality_map,
+    )
+
+    rng = np.random.default_rng(1)
+    train = [dna.encode(_gene_like(rng, 150, 0.38)) for _ in range(20)]
+    gicm = icm_train.train_icm(train, model_len=12, depth=7)
+    if mode == "indels":
+        reads = homopolymer_indel_reads(5, 40)
+        kw = {"allow_indels": True}
+    else:
+        reads = planted_stop_reads(6, 40)
+        kw = {"allow_subs": True}
+        if mode == "subs_quality_file":
+            kw["qualities"] = quality_map(reads, 7)
+    cpu = list(tmg.run_glimmer_mg(reads, gicm, device="cpu", **kw))
+    icm_cuda.reset_launches()
+    gpu = list(tmg.run_glimmer_mg(reads, gicm, device=cuda, **kw))
     assert icm_cuda.launches > 0
     assert tmg.format_predict_mg(gpu) == tmg.format_predict_mg(cpu)
