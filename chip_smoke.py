@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's prediction and classification paths on one NVIDIA GPU.
+"""Drive the PyTorch port's paths, clustering included, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--reads 8192] [--genome-kb 200] [--check 256]
                           [--decoys 508]
@@ -40,9 +40,33 @@ Phases (any failure raises and exits non-zero):
      the source genome for at least 90% of the reads, the first reads'
      scores within length/512 of the exact walk on the card and their
      .predict text byte-identical to the host engine on the same
-     .class.txt, the prediction routing limits of phase 5. Prints a warm
-     classify_file call's reads/s, model-Mbp/s and wall split by layer,
-     and a warm pipeline run's wall split by stage;
+     .class.txt, the prediction routing limits of phase 5. Prints the
+     run's wall split by stage, and a warm classify_file call's reads/s,
+     model-Mbp/s and wall split by layer;
+  6b. stages 4-5: the same reads, upper case, through the port's
+     run_pipeline(device="cuda", iterate=1) with a taxonomy that puts each
+     decoy in its source genome's family, so init_clusters_from_results
+     seeds one cluster a family: clustering with the device EM (the bank
+     trainer on the card, then K2 on the freshly trained cluster bank,
+     each iteration), then each cluster retrained and repredicted (K1).
+     Checks: K2 launched in the EM and K1 in repredict, the first EM
+     training on the card equal to the same code's on the CPU (counts,
+     mutual information within 4 x 2^-23 x its terms' magnitude, mip but
+     for printed near-ties, logged probs within 4 ulps), K2 in the EM
+     bitwise equal to its twin on the last iteration's call (its tables,
+     all of its reads), K1 in repredict bitwise equal to its twin on the
+     inputs of the stage's call with the most bank rows (B, L and G
+     printed), every read once in the final .predict, the largest
+     cluster's first reads byte-identical to the host engine with that
+     cluster's retrained models. Prints the clusters, the EM's iterations
+     with each one's training (histograms among it) and K2 milliseconds
+     (this run is probed: each call synchronised), the level-7 histogram's
+     bytes and the level histogram (one bincount over masked keys) against
+     the 11 index_add_ passes it replaced on the first training's level-7
+     inputs, the host EM's agreement with the device EM on the first
+     1,024 reads (a finding, not a gate), and a warm, unprobed run's wall
+     split by stage, its repredict stage split into retraining and the
+     rest;
   7. substitution mode: reads sampled as in phase 5 with 0.5%
      substitutions per base, two thirds with Phred 2-41 qualities,
      through run_glimmer_mg_classes(device="cuda", allow_subs=True,
@@ -61,9 +85,11 @@ Phases (any failure raises and exits non-zero):
      twin on the route's own inputs as in phase 7. Prints warm reads/s
      and the engine's thread count.
 
-K1's "launches" in the kernels record is the sum over the three paths it
+K1's "launches" in the kernels record is the sum over the four paths it
 runs on (phases 5, 7 and 8, each counted from zero around its first
-pass), "launches_by_path" gives each.
+pass, and the repredict stage of phase 6b's counted run), K2's the sum
+over classification (phase 6) and the EM (phase 6b); "launches_by_path"
+gives each.
 
 The script imports only glimmer_mg_torch and checks at the end that no
 module of JAX or of glimmer_mg_tpu was loaded.
@@ -735,17 +761,20 @@ def pipeline_phase(root, icm_dir, gd, bank, reads, cmap, check):
     fa = os.path.join(root, "reads.fa")
     write_fasta(fa, reads)
     work = os.path.join(root, "pipe")
+    timers = pipe.StageTimers()
     tmg.reset_counters()
     icm_cuda.reset_launches()
     t0 = time.perf_counter()
     final = pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=0,
-                              workdir=work)
+                              workdir=work, timers=timers)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     k1, k2 = icm_cuda.launches, icm_cuda.bank_walk_launches
     counts = dict(tmg.counters)
     log(f"pipeline path (cold): {len(reads)} reads in {cold:.2f} s; "
         f"K2 launches {k2}, K1 launches {k1}; routes {counts}")
+    log_parts("pipeline (iterate=0, cold)", cold,
+              {st.name: st.wall_s for st in timers.stages})
     assert k2 > 0, "the pipeline did not launch K2"
     assert k1 > 0, "the pipeline did not launch K1"
 
@@ -837,21 +866,347 @@ def classify_warm(fa, icm_dir, root, n_reads, bp):
     log_parts("warm classify_file", wall, parts)
 
 
-def pipeline_warm(fa, icm_dir, root):
-    """A warm run_pipeline(iterate=0) with its wall split by stage."""
+def family_taxonomy(icm_dir):
+    """Each strain's Phymm ranks (genus, family, order, class, phylum),
+    its family the source genome's: g<k> is family f<k>, and decoy k (a
+    copy of genome k % 4, add_decoys) family f<k % 4>. Clusters seeded at
+    the family rank then hold a genome and its decoys."""
+    from glimmer_mg_torch.parallel.phymm import genome_icm_paths, path_to_genome
+
+    tax = {}
+    for path in genome_icm_paths(icm_dir):
+        strain = path_to_genome(path).split("|")[0]
+        k = (int(strain[5:]) % 4 if strain.startswith("decoy")
+             else int(strain[1:]))
+        tax[strain] = ("", f"f{k}", "", "", "")
+    return tax
+
+
+@contextlib.contextmanager
+def em_probes():
+    """For the block, record what stages 4-5 run: each bank training's
+    and its histograms' device time, each EM bank walk's (K2) time and the
+    reads whose best cluster it changed, the first training's arguments and
+    its last (level-7) histogram's, the last EM walk's arguments, the K2
+    launches inside scimm_cluster and the K1 launches inside repredict
+    (differences of the wrappers' own counts; ``in_repredict`` is true
+    while repredict runs), and the EM's seeds. Each timed call is
+    synchronised before and after."""
     import torch
 
-    from glimmer_mg_torch.pipeline import glimmer_mg_pipe as pipe
+    from glimmer_mg_torch.ops import icm_cuda, icm_train_device as itd
+    from glimmer_mg_torch.pipeline import glimmer_mg_pipe as pipe, scimm
 
+    rec = {"train_ms": [], "hist_ms": [], "k2_ms": [], "moved": [],
+           "scimm": 0, "repredict": 0, "in_em": False,
+           "in_repredict": False}
+    real = {(itd, "train_icm_bank"): itd.train_icm_bank,
+            (itd, "level_histogram"): itd.level_histogram,
+            (icm_cuda, "bank_score_both_strands"):
+                icm_cuda.bank_score_both_strands,
+            (scimm, "scimm_cluster"): scimm.scimm_cluster,
+            (pipe, "repredict"): pipe.repredict}
+
+    def synced(fn, key, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        rec[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def train(*a, **k):
+        rec.setdefault("first_train", (a, k))
+        rec["hist_ms"].append(0.0)
+        return synced(real[itd, "train_icm_bank"], "train_ms", *a, **k)
+
+    def hist(*a, **k):
+        if len(rec["hist_ms"]) == 1:
+            rec["hist_args"] = (a, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real[itd, "level_histogram"](*a, **k)
+        torch.cuda.synchronize()
+        rec["hist_ms"][-1] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def k2(*a, **k):
+        fn = real[icm_cuda, "bank_score_both_strands"]
+        if not rec["in_em"]:
+            return fn(*a, **k)
+        rec["last_k2"] = (a, k)
+        out = synced(fn, "k2_ms", *a, **k)
+        # reads whose best cluster differs from the assignment scored
+        best = out.argmax(dim=1).cpu()
+        rec["moved"].append(int((best != rec["assign"]).sum()))
+        rec["assign"] = best
+        return out
+
+    def cluster(*a, **k):
+        n0 = icm_cuda.bank_walk_launches
+        rec.update(in_em=True, init=a[1], n_clusters=a[2],
+                   assign=torch.as_tensor(a[1]).to(torch.int64))
+        try:
+            return real[scimm, "scimm_cluster"](*a, **k)
+        finally:
+            rec["in_em"] = False
+            rec["scimm"] += icm_cuda.bank_walk_launches - n0
+
+    def repredict(*a, **k):
+        n0 = icm_cuda.launches
+        rec["in_repredict"] = True
+        try:
+            return real[pipe, "repredict"](*a, **k)
+        finally:
+            rec["in_repredict"] = False
+            rec["repredict"] += icm_cuda.launches - n0
+
+    probes = {(itd, "train_icm_bank"): train,
+              (itd, "level_histogram"): hist,
+              (icm_cuda, "bank_score_both_strands"): k2,
+              (scimm, "scimm_cluster"): cluster,
+              (pipe, "repredict"): repredict}
+    try:
+        for (mod, name), fn in probes.items():
+            setattr(mod, name, fn)
+        yield rec
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def log_em(title, rec):
+    """The EM's iterations (one K2 walk each; a converged EM stops after
+    the walk that changed no read, one that reaches max_iters trains once
+    more) and each iteration's training (its histograms among it) and K2
+    milliseconds."""
+    iters, trains = len(rec["k2_ms"]), len(rec["train_ms"])
+    log(f"{title}: {iters} EM iterations, "
+        f"{'converged' if trains == iters else 'stopped at max_iters'}; "
+        f"{trains} trainings; per iteration (ms, host clock, synchronised)"
+        ": train " + json.dumps([round(x, 3) for x in rec["train_ms"]])
+        + ", of which histograms "
+        + json.dumps([round(x, 3) for x in rec["hist_ms"]])
+        + ", K2 " + json.dumps([round(x, 3) for x in rec["k2_ms"]])
+        + "; reads changing cluster " + json.dumps(rec["moved"]))
+
+
+def index_add_histogram(model, frame, ctx, last, node_local, valid,
+                        n_models, periodicity, nodes_on_level, model_len):
+    """``icm_train_device.level_histogram`` as 11 ``index_add_`` passes,
+    one per window position, invalid positions sent to a sink bin past the
+    end: the form it replaced, kept to time against it."""
+    import torch
+
+    w = model_len - 1
+    size = n_models * periodicity * nodes_on_level * w * 16
+    base = ((model * periodicity + frame) * nodes_on_level
+            + node_local) * (w * 16)
+    counts = torch.zeros(size + 1, dtype=torch.int64, device=ctx.device)
+    ones = torch.ones(base.shape, dtype=torch.int64, device=ctx.device)
+    for j in range(w):
+        pair = 4 * ((ctx >> (2 * j)) & 3) + last
+        counts.index_add_(0, torch.where(valid, base + j * 16 + pair, size),
+                          ones)
+    return counts[:size].reshape(n_models, periodicity, nodes_on_level, w, 16)
+
+
+def iterate_phase(root, icm_dir, gd, reads, check):
+    """Stages 4-5 on the card: the reads, upper case, as a FASTA file
+    through run_pipeline(iterate=1) (classify with K2, parse, predict with
+    K1, cluster with the device EM: the bank trainer and K2 on the cluster
+    bank, repredict each cluster with K1), counted and checked, each kernel
+    held to its twin on the inputs of one of its calls on this path.
+    Returns (K2 launches in the EM, K1 launches in repredict).
+
+    Upper case because retraining matches codons case-sensitively against
+    upper-case codons, as the reference's train_features.py does: with
+    lower-case reads it finds no non-gene ORF."""
+    import numpy as np
+    import torch
+
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.host import read_fasta, read_icm, write_fasta
+    from glimmer_mg_torch.io.genome_data import parse_classes
+    from glimmer_mg_torch.models import features as feat
+    from glimmer_mg_torch.ops import icm_cuda, icm_score
+    from glimmer_mg_torch.ops import icm_train_check as chk
+    from glimmer_mg_torch.ops import icm_train_device as itd
+    from glimmer_mg_torch.pipeline import elph, glimmer_mg_pipe as pipe, scimm
+    from glimmer_mg_torch.pipeline import train_features as tf
+
+    reads = [(h, s.upper()) for h, s in reads]
+    os.makedirs(os.path.join(root, "upper"))
+    fa = os.path.join(root, "upper", "reads.fa")
+    write_fasta(fa, reads)
+    taxonomy = family_taxonomy(icm_dir)
+    work = os.path.join(root, "pipe_iter")
     timers = pipe.StageTimers()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=0,
-                      workdir=os.path.join(root, "pipe_warm"), timers=timers)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    log_parts("warm pipeline (iterate=0)", wall,
+    with em_probes() as rec, \
+            widest_six_frame(lambda: rec["in_repredict"]) as widest:
+        tmg.reset_counters()
+        icm_cuda.reset_launches()
+        t0 = time.perf_counter()
+        final = pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=1,
+                                  taxonomy=taxonomy, workdir=work,
+                                  timers=timers)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        k1, k2 = icm_cuda.launches, icm_cuda.bank_walk_launches
+    n_clusters = rec["n_clusters"]
+    log(f"iterate path (cold): {len(reads)} reads in {cold:.2f} s; "
+        f"init_clusters_from_results made {n_clusters} clusters (family "
+        f"rank); K2 launches {k2} ({rec['scimm']} in the EM), K1 launches "
+        f"{k1} ({rec['repredict']} in repredict); routes "
+        f"{dict(tmg.counters)}")
+    log_parts("iterate pipeline (cold)", cold,
               {st.name: st.wall_s for st in timers.stages})
+    log_em("device EM (cold run)", rec)
+    a, kw = rec["first_train"]
+    depth = kw["depth"]
+    log(f"level-{depth} histogram: {8 * n_clusters * 3 * 4 ** depth * 11 * 16}"
+        f" bytes (int64, {n_clusters} models x 3 frames x {4 ** depth} "
+        f"nodes x 11 window positions x 16 pairs)")
+    assert [st.name for st in timers.stages] == [
+        "phymm", "parse_phymm", "iter0", "cluster", "repredict"]
+    assert rec["scimm"] > 0, "the EM did not launch K2"
+    assert rec["repredict"] > 0, "repredict did not launch K1"
+    assert rec["scimm"] == len(rec["k2_ms"]) >= 1
+    assert n_clusters >= 2, n_clusters
+    check_widest("repredict", widest)
+
+    # the first EM training on the card against the same code on the CPU
+    rec_g, rec_c = {}, {}
+    t0 = time.perf_counter()
+    trained_g = itd.train_icm_bank(*a, **kw, record=rec_g)
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trained_c = itd.train_icm_bank(*(x.cpu() for x in a), **kw,
+                                   record=rec_c)
+    t_c = time.perf_counter() - t0
+    ties, worst = chk.tie_nodes(*trained_c, rec_c, *trained_g, rec_g)
+    log(f"EM training on the card vs the CPU ({a[0].shape[0]} reads x "
+        f"{a[0].shape[1]} bases, {n_clusters} models, depth "
+        f"{kw['depth']}; {t_g:.3f} s vs {t_c:.3f} s): counts equal, mutual "
+        f"information within {worst:.3f} x 2^-23 x its terms' magnitude "
+        f"(bound {chk.MI_REL / chk.F32_EPS:g}), mip equal at every compared "
+        f"node but {len(ties)} near-ties, logged probs within 4 ulps")
+    for t in ties:
+        log(f"  near-tie (CPU, card): {json.dumps(t)}")
+
+    # the level histogram against the 11 index_add_ passes it replaced,
+    # on the first training's level-7 inputs
+    ha, hk = rec["hist_args"]
+    same = torch.equal(itd.level_histogram(*ha, **hk),
+                       index_add_histogram(*ha, **hk))
+    log(f"level-{depth} histogram, {int(ha[5].sum())} counted of "
+        f"{ha[5].numel()} positions (ms, CUDA events, median of 5): one "
+        f"bincount over masked keys "
+        f"{cuda_ms(lambda: itd.level_histogram(*ha, **hk)):.3f}, 11 "
+        f"index_add_ passes with a sink bin "
+        f"{cuda_ms(lambda: index_add_histogram(*ha, **hk)):.3f}; counts "
+        f"{'equal' if same else 'DIFFER'}")
+    assert same, "the two level histograms differ"
+
+    # K2 inside the EM, the last iteration's call (its packed cluster
+    # tables, all of its reads), against its twin
+    (lm, pk, r, ln, *rest), kw = rec["last_k2"]
+    got = icm_cuda.bank_score_both_strands(lm, pk, r, ln, *rest, **kw)
+    shape = dict(zip(("model_len", "depth"), rest), **kw)
+    rc = icm_score.revcomp_reads(r, ln)
+    want = torch.maximum(*(icm_score.bank_score_reads_packed(
+        lm, pk, x, ln, **shape) for x in (r, rc)))
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    log(f"K2 in the EM vs twin (last iteration's call: {lm.shape[0]} "
+        f"cluster tables, all {r.shape[0]} reads x {r.shape[1]} bases): "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    assert same, "K2 in the EM differs from its twin"
+
+    with open(final) as fh:
+        headers = [line[1:].rstrip("\n") for line in fh
+                   if line.startswith(">")]
+    assert sorted(headers) == sorted(h for h, _s in reads), \
+        "the final .predict does not hold every read once"
+
+    # the largest cluster's reprediction against the host engine, with the
+    # cluster's own models (its GC is the whole cluster's, so every read
+    # goes in; only the first ``check`` are predicted by the host engine)
+    sizes = {k: sum(1 for _ in read_fasta(os.path.join(
+        work, f"cluster-{k}.fa"))) for k in range(n_clusters)}
+    big = max(sizes, key=sizes.get)
+    c_reads = list(read_fasta(os.path.join(work, f"cluster-{big}.fa")))
+    prefix = os.path.join(work, f"reads.cluster-{big}")
+    rbs = feat.PWM.read(f"{prefix}.run1.motif")
+    rbs.counts_to_prob()
+    rbs.probs_to_logs()
+    real_host = tmg._host_predict
+    budget = [check]
+
+    def first_reads_only(jobs, *a, **k):
+        n = min(budget[0], len(jobs))
+        budget[0] -= n
+        return real_host(jobs[:n], *a, **k) + [[] for _ in jobs[n:]]
+
+    tmg._host_predict = first_reads_only
+    try:
+        host = list(tmg.run_glimmer_mg_classes(
+            c_reads, gd, parse_classes(os.path.join(work, "reads.class.txt")),
+            device=DEVICE, user_icm=read_icm(f"{prefix}.run1.gicm"),
+            user_rbs_pwm=rbs, features_path=f"{prefix}.run1.features.txt",
+            host_engine=True))[:check]
+    finally:
+        tmg._host_predict = real_host
+    with open(f"{prefix}.predict") as fh:
+        blocks = predict_blocks(fh.read())
+    same = "".join(blocks[h] for h, _g in host) == tmg.format_predict_mg(host)
+    log(f"cluster {big} ({sizes[big]} of {len(reads)} reads; sizes "
+        f"{json.dumps(sizes)}): first {len(host)} reads of its .predict vs "
+        f"host engine with its run1.gicm, .motif and .features.txt: "
+        f"{'byte-identical' if same else 'DIFFER'} "
+        f"({sum(len(g) for _h, g in host)} genes)")
+    assert same, "the cluster's reprediction differs from the host engine"
+
+    # the host EM against the device EM on the first 1,024 reads, for the
+    # record (the device EM scores through K2's 16-bit tables)
+    seqs = [s for _h, s in reads[:1024]]
+    init = np.asarray(rec["init"])[:1024]
+    t0 = time.perf_counter()
+    a_dev, _i, _s = scimm.scimm_cluster(seqs, init, n_clusters,
+                                        device=DEVICE)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a_host, _i, _s = scimm.scimm_cluster(seqs, init, n_clusters,
+                                         use_device=False, device=DEVICE)
+    t_host = time.perf_counter() - t0
+    log(f"host EM vs device EM on the first {len(seqs)} reads: assignments "
+        f"agree for {float(np.mean(a_dev == a_host)):.4f} (device EM "
+        f"{t_dev:.2f} s, host EM {t_host:.2f} s; not a gate)")
+
+    # a warm run without the probes (no synchronisation but at its end)
+    timers = pipe.StageTimers()
+    parts = [(tf, "train_features", "train_features", False),
+             (elph, "motif_counts", "motif_finder", False)]
+    with wrapped_parts(parts) as repredict_parts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=1,
+                          taxonomy=taxonomy,
+                          workdir=os.path.join(root, "pipe_iter_warm"),
+                          timers=timers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stages = {st.name: st.wall_s for st in timers.stages}
+    log_parts("warm pipeline (iterate=1, unprobed)", wall, dict(stages))
+    retrain = repredict_parts.get("train_features", 0.0)
+    log(f"warm repredict stage {stages['repredict']:.4f} s: retraining "
+        f"(train_features, host Python) {retrain:.4f} s, of which the RBS "
+        f"motif finder {repredict_parts.get('motif_finder', 0.0):.4f} s; "
+        f"the rest (the clusters' predictions with their retrained models, "
+        f"files) {stages['repredict'] - retrain:.4f} s")
+    return rec["scimm"], rec["repredict"]
 
 
 def with_substitutions(reads, rate, seed):
@@ -892,48 +1247,38 @@ def with_homopolymer_indels(reads, rate, seed):
     return out
 
 
-def error_mode_phase(name, gd, reads, cmap, check, **kw):
-    """One error mode's path (run_glimmer_mg_classes options ``kw``):
-    a counted cold pass, K1 against its twin on the inputs of the pass's
-    call with the most bank rows, a warm pass for reads/s, a timed pass
-    split by layer, and the first ``check`` reads against the host engine.
-    Returns (K1 launches of the counted pass, route counters, genes, the
-    cold pass's output)."""
-    import torch
+@contextlib.contextmanager
+def widest_six_frame(active=lambda: True):
+    """For the block, keep the K1 call (``icm_cuda.mg_six_frame``) with
+    the most bank rows among those made while ``active()``: its arguments
+    and a copy of its outputs. The capture launches nothing itself."""
+    from glimmer_mg_torch.ops import icm_cuda
 
-    from glimmer_mg_torch.engine import glimmer_mg as tmg
-    from glimmer_mg_torch.ops import icm_cuda, icm_score
-
-    # the route's K1 calls, kept for the twin check below (the capture
-    # launches nothing itself)
     widest = {}
-    real_six_frame = icm_cuda.mg_six_frame
+    real = icm_cuda.mg_six_frame
 
     def capture(*a, **k):
-        res = real_six_frame(*a, **k)
-        if a[0].shape[0] > widest.get("G", 0):
+        res = real(*a, **k)
+        if active() and a[0].shape[0] > widest.get("G", 0):
             widest.update(G=a[0].shape[0], args=a, kw=k,
                           out=[x.clone() for x in res])
         return res
 
-    tmg.reset_counters()
-    icm_cuda.reset_launches()
     icm_cuda.mg_six_frame = capture
     try:
-        t0 = time.perf_counter()
-        out = list(tmg.run_glimmer_mg_classes(reads, gd, cmap, device=DEVICE,
-                                              **kw))
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
+        yield widest
     finally:
-        icm_cuda.mg_six_frame = real_six_frame
-    launches, counts = icm_cuda.launches, dict(tmg.counters)
-    genes = [g for _h, gs in out for g in gs]
-    log(f"{name} pass 1: {len(out)} reads in {cold:.2f} s; K1 launches "
-        f"{launches}; routes {counts}; {len(genes)} genes, "
-        f"{sum(1 for g in genes if g.errors)} with error records")
-    assert launches > 0, f"the {name} path did not launch K1"
-    assert len(out) == len(reads)
+        icm_cuda.mg_six_frame = real
+
+
+def check_widest(name, widest):
+    """Hold a captured K1 call (``widest_six_frame``) bitwise to its twin
+    on the same inputs."""
+    import torch
+
+    from glimmer_mg_torch.ops import icm_score
+
+    assert widest, f"no K1 call was captured on the {name} route"
     args, twin_kw = widest["args"], dict(widest["kw"])
     twin_kw.pop("folded", None)
     tg, ti = icm_score.mg_six_frame_batch(*args, **twin_kw)
@@ -946,6 +1291,36 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
         f"depth={twin_kw['depth']}: "
         f"{'bitwise equal' if bitwise else 'DIFFER'}")
     assert bitwise, f"K1 differs from its twin on the {name} route"
+
+
+def error_mode_phase(name, gd, reads, cmap, check, **kw):
+    """One error mode's path (run_glimmer_mg_classes options ``kw``):
+    a counted cold pass, K1 against its twin on the inputs of the pass's
+    call with the most bank rows, a warm pass for reads/s, a timed pass
+    split by layer, and the first ``check`` reads against the host engine.
+    Returns (K1 launches of the counted pass, route counters, genes, the
+    cold pass's output)."""
+    import torch
+
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.ops import icm_cuda
+
+    tmg.reset_counters()
+    icm_cuda.reset_launches()
+    with widest_six_frame() as widest:
+        t0 = time.perf_counter()
+        out = list(tmg.run_glimmer_mg_classes(reads, gd, cmap, device=DEVICE,
+                                              **kw))
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    launches, counts = icm_cuda.launches, dict(tmg.counters)
+    genes = [g for _h, gs in out for g in gs]
+    log(f"{name} pass 1: {len(out)} reads in {cold:.2f} s; K1 launches "
+        f"{launches}; routes {counts}; {len(genes)} genes, "
+        f"{sum(1 for g in genes if g.errors)} with error records")
+    assert launches > 0, f"the {name} path did not launch K1"
+    assert len(out) == len(reads)
+    check_widest(name, widest)
     for g in genes:
         assert g.score == g.score and abs(g.score) < 1e6
         assert g.frame in (-3, -2, -1, 1, 2, 3)
@@ -1150,9 +1525,10 @@ def main(argv=None):
         del bank
         classify_warm(fa, icm_dir, root, len(reads),
                       sum(len(s) for _h, s in reads))
-        pipeline_warm(fa, icm_dir, root)
+        k2_scimm, k1_repredict = iterate_phase(root, icm_dir, gd, reads,
+                                               args.check)
 
-        k1_paths = {"prediction": launches}
+        k1_paths = {"prediction": launches, "repredict": k1_repredict}
         k1_paths["subs"] = subs_phase(gd, genomes, args.reads, args.check,
                                       args.seed + 11)
         k1_paths["indels"] = indel_phase(gd, genomes, args.reads,
@@ -1163,7 +1539,9 @@ def main(argv=None):
     assert not bad, f"JAX or JAX package modules were loaded: {bad[:5]}"
     record["launches"] = sum(k1_paths.values())
     record["launches_by_path"] = k1_paths
-    k2_record["launches"] = k2_launches
+    k2_record["launches_by_path"] = {"classify": k2_launches,
+                                     "scimm": k2_scimm}
+    k2_record["launches"] = k2_launches + k2_scimm
     k2_int8_record["launches"] = k2_int8_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,15 +1,18 @@
-"""Read classification steps: every read against every bank ICM, both strands.
+"""Read classification and EM clustering steps.
 
-Counterpart of ``glimmer_mg_tpu.parallel.classify`` without its mesh and
-EM steps: a dense (reads x models) score matrix, forward and
-reverse-complement, per-read max (the Phymm scripts' fwd/rev max,
-reference scripts/scoreReadsGlim.pl:450-482), then the argmax.
+Counterpart of ``glimmer_mg_tpu.parallel.classify`` without its mesh: a
+dense (reads x models) score matrix, forward and reverse-complement,
+per-read max (the Phymm scripts' fwd/rev max, reference
+scripts/scoreReadsGlim.pl:450-482), then the argmax.
 
   * ``classify_step``: the exact f32 walk (``ops.icm_score``);
   * ``classify_step_kernel``: the 16-bit fixed-point bank walk over both
     strands, ``ops.icm_cuda.bank_score_both_strands`` (one launch of the
     CUDA kernel on CUDA tensors, its twin on CPU tensors), the
-    counterpart of ``classify_step_pallas``.
+    counterpart of ``classify_step_pallas``;
+  * ``em_step``: one Scimm EM step (SURVEY P12): classify with the exact
+    walk, hard-assign, retrain the whole bank with
+    ``ops.icm_train_device.train_icm_bank``.
 
 ``torch.argmax`` returns the first maximal index, as ``jnp.argmax`` does.
 """
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from ..models import dna
-from ..ops import icm_cuda, icm_score
+from ..ops import icm_cuda, icm_score, icm_train_device
 from ..ops.icm_score import revcomp_reads
 
 
@@ -44,6 +47,24 @@ def classify_step_kernel(level_mip, probs_pk, reads, lengths, model_len=12,
     ``icm_cuda.pack_tables`` output; both strands in one launch."""
     return _with_best(icm_cuda.bank_score_both_strands(
         level_mip, probs_pk, reads, lengths, model_len, depth))
+
+
+def em_step(bank_mip, bank_probs, reads, lengths, n_models: int,
+            model_len: int = 12, depth: int = 7, periodicity: int = 3):
+    """One full Scimm-style EM training step on the reads' device.
+
+    classify -> hard assignment -> retrain the whole bank from windowed
+    context counts (chi-square deleted interpolation) -> return the new
+    bank plus the assignment: (new_mip, new_probs, best, scores).
+    """
+    scores, best = classify_step(bank_mip, bank_probs, reads, lengths,
+                                 model_len, depth)
+    assign = torch.nn.functional.one_hot(best.long(), n_models).to(
+        torch.float32)
+    new_mip, new_probs = icm_train_device.train_icm_bank(
+        reads.to(torch.int32), lengths, assign, n_models=n_models,
+        model_len=model_len, depth=depth, periodicity=periodicity)
+    return new_mip, new_probs, best, scores
 
 
 def pad_reads(seqs, length=None):

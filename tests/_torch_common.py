@@ -17,6 +17,19 @@ import pytest
 
 
 @pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for a module's tests, restored after: the
+    test suite runs several worker processes on the machine's cores, and
+    torch's threads on large tensors then mostly wait for each other."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
 def trained_models():
     """A two-genome model database (GC 0.38 / 0.58) and its class names."""
     from glimmer_mg_tpu.io.genome_data import GenomeData
@@ -49,6 +62,41 @@ def trained_models():
     train_all.train_all(genomes, os.path.join(root, "genomeData"))
     gd = GenomeData(os.path.join(root, "genomeData"))
     return gd, list(genomes)
+
+
+def mg_genomes_and_reads():
+    """The JAX package's pipeline fixture recipe (tests/test_pipeline_mg.py):
+    two genomes (GC 0.33 / 0.62) and 30 reads of 600 bp, alternating.
+    Returns (genomes, reads, truth)."""
+    from tests.test_pipeline_mg import _make_genome
+
+    rng = np.random.default_rng(11)
+    genomes = {"alpha|chrA": _make_genome(rng, 0.33),
+               "beta|chrB": _make_genome(rng, 0.62)}
+    reads, truth = [], []
+    keys = list(genomes)
+    for i in range(30):
+        cls = keys[i % 2]
+        start = int(rng.integers(0, len(genomes[cls]) - 600))
+        reads.append((f"read{i}", genomes[cls][start:start + 600]))
+        truth.append(cls.split("|")[0])
+    return genomes, reads, truth
+
+
+@pytest.fixture(scope="module")
+def mg_db(tmp_path_factory):
+    """``mg_genomes_and_reads`` trained into a database with double ICMs,
+    the reads written to ``reads.fa``."""
+    from glimmer_mg_tpu.io.fasta import write_fasta
+    from glimmer_mg_tpu.pipeline import train_all
+
+    root = tmp_path_factory.mktemp("torch_mgdb")
+    icm_dir = root / "genomeData"
+    genomes, reads, truth = mg_genomes_and_reads()
+    train_all.train_all(genomes, str(icm_dir), min_icm_bp=2000)
+    train_all.double_icms(str(icm_dir))
+    write_fasta(root / "reads.fa", reads, width=60)
+    return root, icm_dir, reads, truth
 
 
 def _gene_like(rng, ncod, gc):
@@ -223,6 +271,14 @@ def batch_inputs(reads, cmap, gd, l_pad, b_pad):
         lengths[r] = len(s)
         groups[r] = ids[id(m)]
     return models_list, out_reads, lengths, groups
+
+
+def f32_ulps(a, b):
+    """Elementwise distance of two f32 arrays of one sign in units in the
+    last place."""
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - b)
 
 
 def coords(genes):

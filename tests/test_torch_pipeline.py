@@ -10,8 +10,12 @@
   the JAX ``run_pipeline(iterate=0, raw_done=True)`` on a copy of the work
   directory holding the port's raw file: byte-identical ``.class.txt``,
   ``.run1.predict`` and ``.predict``;
-* ``iterate >= 1`` and a CUDA request without a GPU raise; the new modules
-  import and classify with JAX and the JAX package blocked.
+* ``run_pipeline``'s default ``iterate=1`` runs all five stages, a CUDA
+  request without a GPU raises; the classification, pipeline and
+  clustering modules import, classify and cluster (both EM routes) with
+  JAX and the JAX package blocked.
+
+Stages 4-5 against the JAX package: tests/test_torch_pipeline_iterate.py.
 """
 
 import os
@@ -25,36 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-from glimmer_mg_tpu.io.fasta import write_fasta
 from glimmer_mg_tpu.parallel import phymm as jphymm
-from glimmer_mg_tpu.pipeline import glimmer_mg_pipe as jpipe, train_all
+from glimmer_mg_tpu.pipeline import glimmer_mg_pipe as jpipe
 from glimmer_mg_torch.ops import icm_cuda
 from glimmer_mg_torch.parallel import phymm as tphymm
 from glimmer_mg_torch.pipeline import glimmer_mg_pipe as tpipe
 
-from tests.test_pipeline_mg import _make_genome
-
-
-@pytest.fixture(scope="module")
-def mg_db(tmp_path_factory):
-    """The JAX package's pipeline fixture recipe: two genomes (GC 0.33 /
-    0.62), double ICMs, 30 reads of 600 bp."""
-    root = tmp_path_factory.mktemp("torch_mgdb")
-    icm_dir = root / "genomeData"
-    rng = np.random.default_rng(11)
-    genomes = {"alpha|chrA": _make_genome(rng, 0.33),
-               "beta|chrB": _make_genome(rng, 0.62)}
-    train_all.train_all(genomes, str(icm_dir), min_icm_bp=2000)
-    train_all.double_icms(str(icm_dir))
-    reads, truth = [], []
-    keys = list(genomes)
-    for i in range(30):
-        cls = keys[i % 2]
-        start = int(rng.integers(0, len(genomes[cls]) - 600))
-        reads.append((f"read{i}", genomes[cls][start:start + 600]))
-        truth.append(cls.split("|")[0])
-    write_fasta(root / "reads.fa", reads, width=60)
-    return root, icm_dir, reads, truth
+from tests._torch_common import mg_db  # noqa: F401 (a fixture)
 
 
 def test_classify_file_vs_jax(mg_db):
@@ -170,12 +151,25 @@ def test_pipeline_stages_1_to_3_match_jax(mg_db):
                if line and not line.startswith(">")) > 10
 
 
-def test_iterate_and_cuda_without_gpu_raise(mg_db):
-    root, icm_dir, _reads, _truth = mg_db
-    with pytest.raises(NotImplementedError, match="A8"):
-        tpipe.run_pipeline(str(root / "reads.fa"), str(icm_dir),
-                           device="cpu", iterate=1,
-                           workdir=str(root / "pipe_iter"))
+def test_iterate_runs_and_cuda_without_gpu_raises(mg_db):
+    """The default ``iterate=1`` runs stages 1-5 on the CPU; a CUDA device
+    without a GPU raises before any work."""
+    from glimmer_mg_torch.pipeline import scimm
+    from glimmer_mg_torch.utils.observe import StageTimers
+
+    root, icm_dir, reads, _truth = mg_db
+    work = root / "pipe_iter"
+    timers = StageTimers()
+    final = tpipe.run_pipeline(str(root / "reads.fa"), str(icm_dir),
+                               device="cpu", workdir=str(work),
+                               timers=timers)
+    assert [st.name for st in timers.stages] == [
+        "phymm", "parse_phymm", "iter0", "cluster", "repredict"]
+    text = Path(final).read_text()
+    headers = [line[1:] for line in text.splitlines() if line.startswith(">")]
+    assert sorted(headers) == sorted(h for h, _ in reads)
+    assert list(work.glob("cluster-*.icm"))
+    assert list(work.glob("reads.cluster-*.predict"))
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the rest checks a CPU-only machine")
     with pytest.raises(RuntimeError):
@@ -183,12 +177,17 @@ def test_iterate_and_cuda_without_gpu_raise(mg_db):
     with pytest.raises(RuntimeError):
         tpipe.run_pipeline(str(root / "reads.fa"), str(icm_dir),
                            device="cuda", workdir=str(root / "pipe_cuda"))
+    with pytest.raises(RuntimeError):
+        scimm.scimm_cluster([s for _h, s in reads], np.zeros(30, np.int32),
+                            1, device="cuda")
+    assert not (root / "pipe_cuda").exists()
 
 
 def test_classification_imports_and_runs_without_jax(mg_db):
     """With ``jax`` and ``glimmer_mg_tpu`` imports blocked, the
-    classification and pipeline modules import and classify on the CPU,
-    loading no module of either."""
+    classification, pipeline and clustering modules import, classify and
+    cluster on the CPU (the device EM and the host EM), loading no module
+    of either."""
     root, icm_dir, _reads, _truth = mg_db
     script = textwrap.dedent(f"""
         import sys
@@ -202,12 +201,21 @@ def test_classification_imports_and_runs_without_jax(mg_db):
         sys.meta_path.insert(0, Block())
         import glimmer_mg_torch.host
         from glimmer_mg_torch.parallel import phymm
-        from glimmer_mg_torch.pipeline import glimmer_mg_pipe
+        from glimmer_mg_torch.pipeline import glimmer_mg_pipe, scimm
+        from glimmer_mg_torch.host import read_fasta
 
         paths, rids, scores = phymm.classify_file(
             {str(root / "reads.fa")!r}, {str(icm_dir)!r},
             out_dir={str(root)!r}, device="cpu")
         assert scores.shape == (30, len(paths)), scores.shape
+        seqs = [s for _h, s in read_fasta({str(root / "reads.fa")!r})]
+        init = [i % 2 for i in range(len(seqs))]
+        for use_device in (True, False):
+            assign, icms, sc = scimm.scimm_cluster(
+                seqs, init, 2, max_iters=1, use_device=use_device,
+                device="cpu")
+            assert assign.shape == (30,) and len(icms) == 2, use_device
+            assert sc.shape == (30, 2), sc.shape
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
         assert not bad, bad
