@@ -13,9 +13,10 @@ Phases (any failure raises and exits non-zero):
   3. K1, the six-frame ICM walk kernel, against its plain PyTorch twin on
      the card at the prediction path's shapes (B 2,048 x L 768, 16 model
      groups of depth-7 ICMs): bitwise equal; median times (CUDA events)
-     of the wrapper call, of the kernel alone (device time) warm and
-     L2-cold, and of the twin; ptxas's registers and the block's shared
-     memory;
+     of the wrapper call as the engine makes it (index ranges checked on
+     the host, no host sync) and with its device range check, of the
+     kernel alone (device time) warm and L2-cold, and of the twin;
+     ptxas's registers and the block's shared memory;
   4. K2, the Phymm bank-walk kernel, against its twin at one
      classification batch of the full bank (B 512 x L 702 x M 512), one
      strand and both strands in one launch: bitwise equal; median times of
@@ -30,9 +31,10 @@ Phases (any failure raises and exits non-zero):
      overflow reads took the host route (at most 5%), the first reads'
      .predict text byte-identical to the exact host engine (the port's
      own copy of the pure numpy/Python per-read engine, engine/mg_host.py,
-     run with host_engine=True), finite scores. Prints warm reads/s
-     from a second pass, a third pass's wall time split by layer, a pass
-     with the f32 score carry, and a per-stage breakdown of one chunk;
+     run with engine="host"), finite scores. Prints warm reads/s
+     from a second pass, a third pass's wall time split by layer (chunk
+     overlap off, as in every split), a pass with the f32 score carry,
+     and a per-stage breakdown of one chunk;
   6. the pipeline path: the same reads as a FASTA file through the port's
      run_pipeline(device="cuda", iterate=0): classification against the
      512-ICM bank (K2), class parsing, prediction (K1). Checks: both
@@ -83,13 +85,32 @@ Phases (any failure raises and exits non-zero):
      host. Checks: K1 launched, every read counted in native_reads, the
      first 64 reads byte-identical to the host engine, K1 against its
      twin on the route's own inputs as in phase 7. Prints warm reads/s
-     and the engine's thread count.
+     and the engine's thread count;
+  9. engine routes: phase 5's error-free reads and phase 7's substitution
+     reads through run_glimmer_mg_classes(engine="native"), the native
+     C++ engine on six-frame scores from K1 (precompute "device": packed
+     on the card, copied into pinned memory) and on its own walk
+     (precompute "host"). Checks: K1 launched, every read in
+     native_reads and none on the host route, K1 bitwise equal to its
+     twin on the route's widest call, every .predict byte-identical to
+     the device route's on the same reads and the first 256 to the host
+     engine. Prints warm reads/s of each route, the device route with the
+     chunk overlap on and off, a native pass split by layer (K1's share
+     among it) and the f64 score copy's ms for one chunk, pinned against
+     pageable;
+ 10. the command line: python -m glimmer_mg_torch.cli as subprocesses on
+     the card: glimmer-mg -c on phase 5's reads and classes (byte-
+     identical to the API's output), classify (raw matrix byte-identical
+     to phase 6's, its parsed classes equal to phase 6's .class.txt) and
+     glimmer-mg-pipeline --iterate 0 --raw --cls resumed from a copy of
+     phase 6's work directory (.predict byte-identical). Prints each
+     call's wall time.
 
-K1's "launches" in the kernels record is the sum over the four paths it
-runs on (phases 5, 7 and 8, each counted from zero around its first
-pass, and the repredict stage of phase 6b's counted run), K2's the sum
-over classification (phase 6) and the EM (phase 6b); "launches_by_path"
-gives each.
+K1's "launches" in the kernels record is the sum over the five paths it
+runs on (phases 5, 7, 8 and 9, each counted from zero around its first
+pass or passes, and the repredict stage of phase 6b's counted run), K2's
+the sum over classification (phase 6) and the EM (phase 6b);
+"launches_by_path" gives each.
 
 The script imports only glimmer_mg_torch and checks at the end that no
 module of JAX or of glimmer_mg_tpu was loaded.
@@ -414,10 +435,17 @@ def sixframe_phase(gd, genomes, seed):
     err = max(float((kg - tg).abs().max()), float((ki - ti).abs().max()))
     if not bitwise:
         raise AssertionError(f"six_frame kernel differs from twin ({err})")
-    # the wrapper call as the main path makes it (range check, one host
-    # copy, then the launch) and the kernel's own device time
-    ms = cuda_ms(lambda: icm_cuda.mg_six_frame(*args, **kw, folded=folded),
-                 reps=11)
+    # the wrapper call as the main path makes it (index ranges checked on
+    # the host before the upload, so no host sync, then the launch), the
+    # call with the device range check (one host sync), and the kernel's
+    # own device time
+    icm_cuda.check_tables(bank.gene_mip, bank.indep_mip, bank.depth)
+    icm_cuda.check_reads(reads, lens, grp, 16)
+    ms = cuda_ms(lambda: icm_cuda.mg_six_frame(*args, **kw, folded=folded,
+                                               ranges_checked=True), reps=11)
+    checked_ms = cuda_ms(lambda: icm_cuda.mg_six_frame(*args, **kw,
+                                                       folded=folded),
+                         reps=11)
     launch_args = (dev["gene_mip"], folded[0], dev["indep_mip"], folded[1],
                    *t, bank.model_len, bank.depth)
     dev_ms = kernel_ms(lambda: icm_cuda._launch_six_frame(*launch_args))
@@ -460,7 +488,9 @@ def sixframe_phase(gd, genomes, seed):
            + 2 * B * L * K1_OPS_PER_POSITION)
     bound_ms, bound_by = bound(nbytes, ops)
     log(f"K1 six_frame vs twin at B={B} L={L} G=16 depth={bank.depth}: "
-        f"bitwise equal; wrapper call {ms:.4f} ms; kernel device time "
+        f"bitwise equal; wrapper call {ms:.4f} ms as the engine makes it "
+        f"(ranges checked on the host), {checked_ms:.4f} ms with the device "
+        f"range check; kernel device time "
         f"{dev_ms:.4f} ms warm, {dev_cold_ms:.4f} ms L2-cold; twin {plain_ms:.4f} ms (medians, CUDA events); bound "
         f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
         f"{ops / 1e9:.3f} G integer instructions: {walks} walks entering "
@@ -471,7 +501,8 @@ def sixframe_phase(gd, genomes, seed):
             "replaces": "glimmer_mg_tpu/ops/icm_pallas.py:402",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "kernel_ms": dev_ms, "kernel_ms_cold": dev_cold_ms}
+            "kernel_ms": dev_ms, "kernel_ms_cold": dev_cold_ms,
+            "checked_ms": checked_ms}
 
 
 def bankwalk_phase(bank, genomes, seed):
@@ -604,10 +635,30 @@ def log_parts(title, wall, parts):
                                      for k, v in parts.items()}))
 
 
+@contextlib.contextmanager
+def overlap(value):
+    """For the block, the engine's chunk overlap on ("1"), off ("0") or
+    as its default rule decides (None)."""
+    saved = os.environ.get("GLIMMER_MG_TPU_OVERLAP")
+    if value is not None:
+        os.environ["GLIMMER_MG_TPU_OVERLAP"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("GLIMMER_MG_TPU_OVERLAP", None)
+        if saved is not None:
+            os.environ["GLIMMER_MG_TPU_OVERLAP"] = saved
+
+
 def timed_pass(gd, reads, cmap, want, title="timed warm pass", **kw):
     """One more warm pass (run_glimmer_mg_classes options ``kw``) with its
-    host-clock time split by layer; the parts add up to the pass's wall
-    time ("other": encoding, emission order, padding, uploads)."""
+    host-clock time split by layer, with the chunk overlap off so that
+    the layers run one after another; the parts add up to the pass's wall
+    time ("other": encoding, emission order, padding, uploads). On the
+    native route "frame_dispatch" is the six-frame scores' launch half
+    without K1 and the frame bank (packing, the pinned copy's launch),
+    "frame_finish" the wait for the copy and the cut. Returns (wall,
+    parts)."""
     import torch
 
     from glimmer_mg_torch import native
@@ -619,11 +670,13 @@ def timed_pass(gd, reads, cmap, want, title="timed warm pass", **kw):
               (tmg, "_bank_for", "bank", False),
               (tmg, "_frame_bank_for", "frame_bank", False),
               (icm_cuda, "mg_six_frame", "six_frame", True),
+              (tmg, "_frame_scores_dispatch", "frame_dispatch", True),
+              (tmg, "_frame_scores_finish", "frame_finish", False),
               (dpk, "predict_batch_device", "frontend_dp_traceback", True),
               (dpk, "finish_genes", "finish_genes", False),
               (native, "predict_batch", "native_engine", False),
               (tmg, "_host_predict", "host_engine", False)]
-    with wrapped_parts(stages) as parts:
+    with overlap("0"), wrapped_parts(stages) as parts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = list(tmg.run_glimmer_mg_classes(reads, gd, cmap,
@@ -631,7 +684,12 @@ def timed_pass(gd, reads, cmap, want, title="timed warm pass", **kw):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     assert tmg.format_predict_mg(got) == tmg.format_predict_mg(want)
+    # the dispatch half holds the K1 call and the frame bank: count each once
+    if "frame_dispatch" in parts:
+        parts["frame_dispatch"] -= (parts.get("six_frame", 0.0)
+                                    + parts.get("frame_bank", 0.0))
     log_parts(f"{title}: {len(reads)} reads", wall, parts)
+    return wall, parts
 
 
 def f32_pass(gd, reads, cmap, want):
@@ -828,7 +886,7 @@ def pipeline_phase(root, icm_dir, gd, bank, reads, cmap, check):
 
     host = list(tmg.run_glimmer_mg_classes(
         sub, gd, {h: classes[h] for h, _s in sub}, device=DEVICE,
-        host_engine=True))
+        engine="host"))
     with open(final) as fh:
         blocks = predict_blocks(fh.read())
     same = "".join(blocks[h] for h, _g in host) == tmg.format_predict_mg(host)
@@ -1155,7 +1213,7 @@ def iterate_phase(root, icm_dir, gd, reads, check):
             c_reads, gd, parse_classes(os.path.join(work, "reads.class.txt")),
             device=DEVICE, user_icm=read_icm(f"{prefix}.run1.gicm"),
             user_rbs_pwm=rbs, features_path=f"{prefix}.run1.features.txt",
-            host_engine=True))[:check]
+            engine="host"))[:check]
     finally:
         tmg._host_predict = real_host
     with open(f"{prefix}.predict") as fh:
@@ -1281,6 +1339,7 @@ def check_widest(name, widest):
     assert widest, f"no K1 call was captured on the {name} route"
     args, twin_kw = widest["args"], dict(widest["kw"])
     twin_kw.pop("folded", None)
+    twin_kw.pop("ranges_checked", None)
     tg, ti = icm_score.mg_six_frame_batch(*args, **twin_kw)
     kg, ki = widest["out"]
     bitwise = (torch.equal(kg.view(torch.int32), tg.view(torch.int32))
@@ -1299,7 +1358,7 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
     call with the most bank rows, a warm pass for reads/s, a timed pass
     split by layer, and the first ``check`` reads against the host engine.
     Returns (K1 launches of the counted pass, route counters, genes, the
-    cold pass's output)."""
+    cold pass's output, the host engine's output on the first reads)."""
     import torch
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
@@ -1338,7 +1397,7 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
     sub = reads[:check]
     host = list(tmg.run_glimmer_mg_classes(
         sub, gd, {h: cmap[h] for h, _s in sub}, device=DEVICE,
-        host_engine=True, **kw))
+        engine="host", **kw))
     by_header = dict(out)
     mine = [(h, by_header[h]) for h, _g in host]
     same = tmg.format_predict_mg(host) == tmg.format_predict_mg(mine)
@@ -1348,14 +1407,16 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
         f"{sum(1 for _h, gs in host for g in gs if g.errors)} with error "
         f"records)")
     assert same, f"{name} output differs from the host engine"
-    return launches, counts, genes, out
+    return launches, counts, genes, out, host
 
 
 def subs_phase(gd, genomes, n_reads, check, seed):
-    """Phase 7: substitution mode on the card. Returns K1's launches."""
+    """Phase 7: substitution mode on the card. Returns (K1's launches,
+    the case for phase 9: reads, classes, options, output, the host
+    engine's output on the first reads)."""
     reads, cmap = sample_reads(genomes, n_reads, seed)
     reads, quals = with_substitutions(reads, 0.005, seed + 1)
-    launches, counts, genes, _out = error_mode_phase(
+    launches, counts, genes, out, host = error_mode_phase(
         "subs mode", gd, reads, cmap, check, allow_subs=True,
         qualities=quals)
     stage_breakdown(gd, reads, cmap, "subs mode stage breakdown",
@@ -1366,7 +1427,8 @@ def subs_phase(gd, genomes, n_reads, check, seed):
     n_sub = sum(1 for g in genes if g.errors)
     assert all(e.type == 2 for g in genes for e in g.errors)
     assert n_sub >= 0.01 * len(genes), (n_sub, len(genes))
-    return launches
+    return launches, {"reads": reads, "cmap": cmap, "out": out, "host": host,
+                      "kw": {"allow_subs": True, "qualities": quals}}
 
 
 def indel_phase(gd, genomes, n_reads, check, seed):
@@ -1378,11 +1440,180 @@ def indel_phase(gd, genomes, n_reads, check, seed):
     reads = with_homopolymer_indels(reads, 0.003, seed + 1)
     log(f"indel mode: native engine threads {native.default_threads()} "
         f"(host cores {os.cpu_count()})")
-    launches, counts, _genes, _out = error_mode_phase(
+    launches, counts, _genes, _out, _host = error_mode_phase(
         "indel mode", gd, reads, cmap, check, allow_indels=True)
     assert counts["native_reads"] == len(reads), counts
     assert counts["host_reads"] == counts["device_reads"] == 0, counts
     return launches
+
+
+def copy_ms(n_values):
+    """Median ms (CUDA events) of copying ``n_values`` f64 from the card
+    into pinned host memory (non-blocking, as the native route does) and
+    into pageable memory."""
+    import torch
+
+    src = torch.rand(n_values, dtype=torch.float64, device=DEVICE)
+    pinned = torch.empty(n_values, dtype=torch.float64, pin_memory=True)
+    return (cuda_ms(lambda: pinned.copy_(src, non_blocking=True), reps=11),
+            cuda_ms(lambda: src.cpu(), reps=11))
+
+
+def routes_phase(gd, cases, check):
+    """Phase 9: each case's reads (the error-free reads of phase 5, the
+    substitution reads of phase 7) on engine="native" with both
+    precomputes. Checks: K1 launched on the counted pass (precompute
+    "device"), every read counted in native_reads, K1 bitwise equal to
+    its twin on the route's call with the most bank rows, every .predict
+    byte-identical to the device route's output of the same reads and the
+    first ``check`` to the host engine's. Prints warm reads/s of each
+    route (native with each precompute, the device route with the overlap
+    on and off, native with it off), a timed native pass split by layer,
+    and the f64 score copy's ms for a 2,048-read chunk. Returns K1's
+    launches on the counted passes."""
+    import torch
+
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.ops import icm_cuda
+
+    launches = 0
+    for name, case in cases.items():
+        reads, cmap, kw = case["reads"], case["cmap"], case["kw"]
+        want = tmg.format_predict_mg(case["out"])
+        tmg.reset_counters()
+        icm_cuda.reset_launches()
+        with widest_six_frame() as widest:
+            t0 = time.perf_counter()
+            got = list(tmg.run_glimmer_mg_classes(
+                reads, gd, cmap, device=DEVICE, engine="native", **kw))
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+        n1, counts = icm_cuda.launches, dict(tmg.counters)
+        launches += n1
+        log(f"{name}, native route (precompute device) pass 1: {len(got)} "
+            f"reads in {cold:.2f} s; K1 launches {n1}; routes {counts}")
+        assert n1 > 0, f"the native route did not launch K1 ({name})"
+        assert counts["native_reads"] == len(reads), counts
+        assert counts["host_reads"] == counts["device_reads"] == 0, counts
+        check_widest(f"{name}, native route", widest)
+        same = tmg.format_predict_mg(got) == want
+        by_header = dict(got)
+        mine = [(h, by_header[h]) for h, _g in case["host"]]
+        same_host = (tmg.format_predict_mg(mine)
+                     == tmg.format_predict_mg(case["host"]))
+        log(f"{name}, native route: all {len(reads)} reads vs the device "
+            f"route: {'byte-identical' if same else 'DIFFER'}; first "
+            f"{len(mine)} vs the host engine: "
+            f"{'byte-identical' if same_host else 'DIFFER'}")
+        assert same, "the native route differs from the device route"
+        assert same_host, "the native route differs from the host engine"
+
+        rates = {}
+        for label, route, ov in (
+                ("native, precompute device", {"engine": "native"}, None),
+                ("native, precompute host",
+                 {"engine": "native", "precompute": "host"}, None),
+                ("native, precompute device, overlap off",
+                 {"engine": "native"}, "0"),
+                ("device, overlap on", {}, "1"),
+                ("device, overlap off", {}, "0")):
+            tmg.reset_counters()
+            with overlap(ov):
+                t0 = time.perf_counter()
+                res = list(tmg.run_glimmer_mg_classes(
+                    reads, gd, cmap, device=DEVICE, **route, **kw))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            assert tmg.format_predict_mg(res) == want, label
+            if route:
+                assert tmg.counters["native_reads"] == len(reads), label
+            rates[label] = round(len(reads) / wall, 1)
+        log(f"{name}: warm reads/s by route (overlap by default "
+            f"{'on' if tmg._overlap_engine() else 'off'} with "
+            f"{os.cpu_count()} host cores): {json.dumps(rates)}")
+        wall, parts = timed_pass(gd, reads, cmap, case["out"],
+                                 title=f"{name}, native route timed warm "
+                                       "pass (overlap off)",
+                                 engine="native", **kw)
+        log(f"{name}, native route: K1 {parts.get('six_frame', 0.0):.4f} s "
+            f"= {parts.get('six_frame', 0.0) / wall:.4f} of the pass")
+    lens = [len(s) for _h, s in cases["error-free"]["reads"][:2048]]
+    pinned, pageable = copy_ms(6 * sum(lens))
+    log(f"f64 score copy of a 2,048-read chunk ({6 * sum(lens) * 8 / 1e6:.1f}"
+        f" MB, the reads' own positions only): pinned, non-blocking "
+        f"{pinned:.4f} ms, pageable {pageable:.4f} ms (medians, CUDA events)")
+    return launches
+
+
+def cli_phase(root, icm_dir, reads, cmap, out, fa):
+    """Phase 10: the port's command line, ``python -m glimmer_mg_torch.cli``
+    in subprocesses on the card: ``glimmer-mg -c`` on phase 5's reads and
+    classes byte-identical to the API's output, ``classify`` with a raw
+    matrix byte-identical to phase 6's and classes (parsed as the
+    pipeline parses them) equal to phase 6's ``.class.txt``, and
+    ``glimmer-mg-pipeline --iterate 0 --raw --cls`` resumed from a copy of
+    phase 6's work directory with its ``.predict``. Prints each call's
+    wall time, the first beside the API's warm pass."""
+    import shutil
+
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.parallel import phymm
+    from glimmer_mg_torch.pipeline import glimmer_mg_pipe as pipe
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "cli")
+    os.makedirs(os.path.join(d, "cls"))
+    work = os.path.join(root, "pipe")
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "glimmer_mg_torch.cli", *argv,
+             "--device", DEVICE], cwd=here,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, (argv[0], proc.stderr[-3000:])
+        log(f"CLI {argv[0]}: {wall:.2f} s (a new process: imports, the "
+            "kernel library's load, cold caches)")
+        return proc.stdout
+
+    classes = os.path.join(d, "classes.txt")
+    with open(classes, "w") as fh:
+        for h, _s in reads:
+            fh.write(f"{h}\t{' '.join(cmap[h])}\n")
+    run("glimmer-mg", fa, os.path.join(d, "mg"), "-c", classes,
+        "--genome_data", icm_dir)
+    with open(os.path.join(d, "mg.predict")) as fh:
+        same = fh.read() == tmg.format_predict_mg(out)
+    log(f"CLI glimmer-mg -c on {len(reads)} reads vs the API's output: "
+        f"{'byte-identical' if same else 'DIFFER'}")
+    assert same, "the CLI's glimmer-mg output differs from the API's"
+
+    run("classify", fa, icm_dir, "-o", os.path.join(d, "cls"))
+    raw = phymm.raw_phymm_name(fa)
+    with open(os.path.join(d, "cls", raw), "rb") as a, \
+            open(os.path.join(work, raw), "rb") as b:
+        same_raw = a.read() == b.read()
+    got, _top = pipe.parse_phymm(os.path.join(d, "cls", raw),
+                                 pipe.informative_genomes(icm_dir), 3)
+    text = "".join(f"{rid}\t{' '.join(c)}\n" for rid, c in got.items())
+    with open(os.path.join(work, "reads.class.txt")) as fh:
+        same_cls = text == fh.read()
+    log(f"CLI classify: raw matrix vs phase 6's "
+        f"{'byte-identical' if same_raw else 'DIFFER'}; classes vs its "
+        f".class.txt {'equal' if same_cls else 'DIFFER'}")
+    assert same_raw and same_cls, "the CLI's classify differs from phase 6"
+
+    resumed = os.path.join(d, "pipe")
+    shutil.copytree(work, resumed)
+    final = run("glimmer-mg-pipeline", fa, icm_dir, "--iterate", "0",
+                "--raw", "--cls", "--workdir", resumed).strip()
+    with open(final, "rb") as a, \
+            open(os.path.join(work, "reads.predict"), "rb") as b:
+        same = a.read() == b.read()
+    log(f"CLI glimmer-mg-pipeline --iterate 0 --raw --cls resumed from "
+        f"phase 6: .predict {'byte-identical' if same else 'DIFFER'}")
+    assert same, "the CLI's pipeline output differs from phase 6"
 
 
 def profile_pass(gd, reads, cmap):
@@ -1504,7 +1735,7 @@ def main(argv=None):
         sub_map = {h: cmap[h] for h, _s in sub}
         host = list(tmg.run_glimmer_mg_classes(sub, gd, sub_map,
                                                device=DEVICE,
-                                               host_engine=True))
+                                               engine="host"))
         by_header = dict(out)
         mine = [(h, by_header[h]) for h, _g in host]
         same = tmg.format_predict_mg(host) == tmg.format_predict_mg(mine)
@@ -1529,10 +1760,19 @@ def main(argv=None):
                                                args.check)
 
         k1_paths = {"prediction": launches, "repredict": k1_repredict}
-        k1_paths["subs"] = subs_phase(gd, genomes, args.reads, args.check,
-                                      args.seed + 11)
+        k1_paths["subs"], subs_case = subs_phase(gd, genomes, args.reads,
+                                                 args.check, args.seed + 11)
         k1_paths["indels"] = indel_phase(gd, genomes, args.reads,
                                          min(args.check, 64), args.seed + 13)
+        t0 = time.perf_counter()
+        k1_paths["native"] = routes_phase(
+            gd, {"error-free": {"reads": reads, "cmap": cmap, "out": out,
+                                "host": host, "kw": {}},
+                 "subs mode": subs_case}, args.check)
+        log(f"phase 9 (engine routes): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cli_phase(root, icm_dir, reads, cmap, out, fa)
+        log(f"phase 10 (CLI): {time.perf_counter() - t0:.1f} s")
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
@@ -1545,7 +1785,7 @@ def main(argv=None):
     k2_int8_record["launches"] = k2_int8_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "kernel_ms", "kernel_ms_cold", "launches_by_path")
+            "kernel_ms", "kernel_ms_cold", "checked_ms", "launches_by_path")
     print(gpu_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in
                                   (record, k2_record, k2_int8_record)]}))

@@ -1,35 +1,59 @@
 """glimmer-mg per-read prediction with the device path in PyTorch.
 
 Counterpart of the device half of ``glimmer_mg_tpu.engine.glimmer_mg``
-(``_device_dp_chunk``, ``device_frame_scores``, ``_native_predict``,
+(``_device_dp_chunk``, ``device_frame_scores_dispatch/finish``,
+``_native_predict``, ``_overlap_engine``, ``_engine_pool``,
 ``run_glimmer_mg``, ``run_glimmer_mg_classes``). The host half (Models,
 the exact per-read host engine, output formatting, the classes emission
 order) is the port's own copy in ``engine.glimmer3`` and
 ``engine.mg_host``; the native C++ engine is ``glimmer_mg_torch.native``.
 
-Routing is explicit and counted in ``counters``:
-  * device_reads: reads predicted on ``device`` (six-frame kernel, frontend,
-    event DP, traceback), in the error-free and the substitution mode,
-    with or without a quality file;
-  * native_reads: indel-mode reads, predicted by the native C++ engine on
-    six-frame scores from the six-frame kernel on ``device``;
-  * host_reads: reads predicted by the exact host engine
-    (``_predict_read_with_models``), either because the caller asked for
-    it (``host_engine=True``), or because the whole chunk is outside the
-    device and native routes' scope (circular genomes, models that cannot
-    share one bank), or because the read overflowed the device capacities
-    (more than MAX_EVENTS events, more than MAX_GENES genes, or the DP's
-    row window);
+The caller picks the route with ``engine=``; nothing picks one by itself:
+  * "device" (the default): error-free and substitution chunks, with or
+    without qualities, run the device DP on ``device`` (six-frame kernel,
+    frontend, event DP, traceback); indel chunks run the native engine;
+  * "native": every chunk runs the native C++ engine on the host;
+  * "host": every chunk runs the exact host engine
+    (``_predict_read_with_models``), the reference the others are held to.
+The native engine takes its six-frame scores from ``precompute=``:
+"device" (the default) runs the six-frame kernel on ``device`` (its twin
+on the CPU) and ships the f64 gene-minus-null tables to the host; "host"
+lets the engine run its own walk. The JAX package chooses between its
+device DP and its native engine by calibrated throughput
+(``_use_device_dp``: 10,800 reads/s a host core against 3,500 a chip);
+on a host of 8 cores and one card that rule would pick the native engine.
+
+Routing is counted in ``counters``:
+  * device_reads: reads predicted by the device DP;
+  * native_reads: reads predicted by the native engine;
+  * host_reads: reads predicted by the exact host engine, either because
+    the caller asked for it (``engine="host"``), or because the whole
+    chunk is outside the device and native routes' scope (circular
+    genomes, models that cannot share one bank), or because the read
+    overflowed the device capacities (more than MAX_EVENTS events, more
+    than MAX_GENES genes, or the DP's row window);
   * overflow_reads: the overflow subset of host_reads.
-Unclassified reads (classes mode) yield [] and are not counted. Indel mode
-needs the native engine: when it is disabled or cannot be built, the call
-raises.
+Unclassified reads (classes mode) yield [] and are not counted. The native
+engine has no fallback: when it is disabled or cannot be built, a call
+that needs it raises.
+
+One chunk stays in flight, as in the JAX package: while the main thread
+builds chunk k+1's Models (and, on the native route, launches its
+six-frame kernel), chunk k's device DP, or its score copy and native
+engine call, runs on one module-level worker thread. An exception there
+re-raises in the caller; output order and counters do not depend on it.
+``GLIMMER_MG_TPU_OVERLAP=0/1`` turns it off or on; by default it is on
+with at least 4 host cores.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import hashlib
 import math
+import os
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -47,7 +71,10 @@ from .mg_host import (
 )
 
 __all__ = ["run_glimmer_mg", "run_glimmer_mg_classes", "format_predict_mg",
-           "counters", "reset_counters"]
+           "counters", "reset_counters", "ENGINES", "PRECOMPUTES"]
+
+ENGINES = ("device", "native", "host")
+PRECOMPUTES = ("device", "host")
 
 counters = {"device_reads": 0, "native_reads": 0, "host_reads": 0,
             "overflow_reads": 0}
@@ -66,6 +93,14 @@ def _check_device(device) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def _check_route(engine, precompute) -> None:
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if precompute not in PRECOMPUTES:
+        raise ValueError(f"precompute must be one of {PRECOMPUTES}, got "
+                         f"{precompute!r}")
 
 
 # Banks are cached within one run_* call only: a bank bakes in the call's
@@ -103,9 +138,11 @@ def _kernel_probs(mip, probs):
 
 def _bank_for(rows, models_list, l_pad, device, bank_cache):
     """(bank, its device tensors) for one chunk, from the call's LRU
-    ``bank_cache`` keyed by (model tags ``rows``, length bucket)."""
+    ``bank_cache`` keyed by (model tags ``rows``, length bucket). The
+    six-frame tables' ranges are checked once, before the upload."""
     def build():
         bank = dpk.build_bank(models_list, max_read_len=l_pad)
+        icm_cuda.check_tables(bank.gene_mip, bank.indep_mip, bank.depth)
         dev = dpk.bank_to_device(bank, device)
         for mip, probs in (("gene_mip", "gene_probs"),
                            ("indep_mip", "indep_probs")):
@@ -120,7 +157,8 @@ def _chunk_batch(jobs, row_key, device):
     and its reads on ``device``. Returns (row keys, one Models per row,
     reads (b_pad, l_pad) int32, lengths (b_pad,), row of each read
     (b_pad,)), reads in input order padded to _bucket(l, 256) x
-    _bucket(b, 64).
+    _bucket(b, 64). Bases, lengths and rows are range-checked here, on
+    the host, so the kernel call makes no host sync.
 
     A row is one distinct ``row_key(models)``; rows are in key order, not
     first-seen order, so that chunks holding the same rows share one
@@ -144,6 +182,7 @@ def _chunk_batch(jobs, row_key, device):
         reads[r, : len(seq_idx)] = seq_idx
         lens[r] = len(seq_idx)
         grp[r] = index[key_of[id(m)]]
+    icm_cuda.check_reads(reads, lens, grp, len(keys))
     return (keys, [rows[k] for k in keys],
             *(torch.from_numpy(a).to(device) for a in (reads, lens, grp)))
 
@@ -208,7 +247,8 @@ def _device_dp_chunk(jobs, device, bank_cache, *, f64=True, allow_subs=False):
         dev_bank["indep_probs"], reads_t, lens_t, grp_t,
         model_len=bank.model_len, depth=bank.depth,
         gene_periodicity=bank.periodicity,
-        folded=(dev_bank["gene_probs"], dev_bank["indep_probs"]))
+        folded=(dev_bank["gene_probs"], dev_bank["indep_probs"]),
+        ranges_checked=True)
     quals_t = (_quals_tensor(jobs, b_pad, l_pad, device) if allow_subs
                else None)
     outs = dpk.predict_batch_device(bank, dev_bank, reads_t, lens_t, grp_t,
@@ -228,7 +268,7 @@ def _device_dp_chunk(jobs, device, bank_cache, *, f64=True, allow_subs=False):
 
 
 def _frame_row(models):
-    """A Models' row in the indel route's six-frame bank: its gene ICM by
+    """A Models' row in the native route's six-frame bank: its gene ICM by
     identity and its null ICM by content (classes mode builds a null ICM
     for every Models, the same for reads of the same classes), so the rows
     are at most the chunk's class combinations."""
@@ -240,33 +280,37 @@ def _frame_row(models):
 
 def _frame_bank_for(rows, models_list, device, bank_cache):
     """(ICM bank tables on ``device``, model_len, depth, periodicity) of
-    the six-frame kernel for an indel chunk, from the call's cache keyed
-    by the rows; None when the gene ICMs differ in model length or
-    periodicity."""
+    the six-frame kernel for a native-route chunk, from the call's cache
+    keyed by the rows; None when the gene ICMs differ in model length or
+    periodicity. The tables' ranges are checked once, before the
+    upload."""
     def build():
         genes = [m.gene_icm for m in models_list]
         g0 = genes[0]
         if any(g.model_len != g0.model_len or g.periodicity != g0.periodicity
                for g in genes):
             return None
-        gm, gp, im, ip = (torch.from_numpy(a).to(device) for a in (
-            *icm_score.stack_bank(genes),
-            *icm_score.stack_bank([m.indep_model for m in models_list])))
+        depth = max(g.model_depth for g in genes)
+        tables = (*icm_score.stack_bank(genes),
+                  *icm_score.stack_bank([m.indep_model for m in models_list]))
+        icm_cuda.check_tables(tables[0], tables[2], depth)
+        gm, gp, im, ip = (torch.from_numpy(a).to(device) for a in tables)
         tabs = (gm, _kernel_probs(gm, gp), im, _kernel_probs(im, ip))
-        return (tabs, g0.model_len, max(g.model_depth for g in genes),
-                g0.periodicity)
+        return tabs, g0.model_len, depth, g0.periodicity
 
     return _cached(bank_cache, ("frames",) + tuple(rows), build)
 
 
-def _frame_scores(jobs, device, bank_cache):
-    """Per-read six-frame scores for the native engine: (6, n) f64 arrays,
-    frames 0..2 forward and 3..5 reverse, each the gene-minus-null log-prob
-    (the counterpart of ``device_frame_scores_dispatch/finish``). The
-    six-frame kernel runs on ``device`` (its twin on the CPU); the f64
-    differences are formed there, the forward frames reversed on the host
-    as the JAX package does. None when the chunk cannot share one kernel
-    call."""
+def _frame_scores_dispatch(jobs, device, bank_cache):
+    """The launch half of the native route's six-frame scores (the
+    counterpart of ``device_frame_scores_dispatch``): the six-frame kernel
+    on ``device`` (its twin on the CPU), then on the same device the f64
+    gene-minus-null differences at each read's own positions only, packed
+    read after read as (6, n) with the forward frames reversed (as the
+    engine reads them), and on the card a non-blocking copy of them into
+    pinned host memory and an event behind it. No host sync. Returns the
+    handle that :func:`_frame_scores_finish` takes, or None when the chunk
+    cannot share one kernel call."""
     rows, models_list, reads_t, lens_t, grp_t = _chunk_batch(
         jobs, _frame_row, device)
     fb = _frame_bank_for(rows, models_list, device, bank_cache)
@@ -275,72 +319,173 @@ def _frame_scores(jobs, device, bank_cache):
     tabs, model_len, depth, periodicity = fb
     gene6, ind6 = icm_cuda.mg_six_frame(
         *tabs, reads_t, lens_t, grp_t, model_len=model_len, depth=depth,
-        gene_periodicity=periodicity, folded=(tabs[1], tabs[3]))
-    diff = (gene6.to(torch.float64) - ind6.to(torch.float64)).cpu().numpy()
-    out = []
-    for r, (seq_idx, *_rest) in enumerate(jobs):
-        n = len(seq_idx)
-        fs = np.empty((6, n), dtype=np.float64)
-        fs[:3] = diff[r, :3, :n][:, ::-1]
-        fs[3:] = diff[r, 3:, :n]
-        out.append(fs)
+        gene_periodicity=periodicity, folded=(tabs[1], tabs[3]),
+        ranges_checked=True)
+
+    lens = [len(s) for s, *_rest in jobs]
+    off6 = np.zeros(len(jobs), np.int64)
+    np.cumsum([6 * n for n in lens[:-1]], out=off6[1:])
+    total = 6 * sum(lens)
+    # flat element k belongs to read r (the last whose offset is <= k; an
+    # empty read owns none), frame f, output position p
+    k = torch.arange(total, device=device)
+    off6_t = torch.from_numpy(off6).to(device)
+    r = torch.searchsorted(off6_t, k, right=True) - 1
+    local = k - off6_t[r]
+    n = lens_t.to(torch.int64)[r]
+    f = local // n
+    p = local - f * n
+    pos = torch.where(f < 3, n - 1 - p, p)
+    src = (r * 6 + f) * reads_t.shape[1] + pos
+    diff = (gene6.reshape(-1)[src].to(torch.float64)
+            - ind6.reshape(-1)[src].to(torch.float64))
+    event = None
+    if diff.device.type == "cuda":
+        host = torch.empty(total, dtype=torch.float64, pin_memory=True)
+        host.copy_(diff, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        diff = host
+    return diff, event, lens
+
+
+def _frame_scores_finish(handle):
+    """The blocking half (the counterpart of
+    ``device_frame_scores_finish``): wait for the copy, then cut each
+    read's (6, n) f64 table out of the packed scores (views, no copy):
+    frames 0..2 forward and 3..5 reverse, each the gene-minus-null
+    log-prob, as the native engine reads them."""
+    flat, event, lens = handle
+    if event is not None:
+        event.synchronize()
+    flat = flat.numpy()
+    out, off = [], 0
+    for n in lens:
+        out.append(flat[off:off + 6 * n].reshape(6, n))
+        off += 6 * n
     return out
 
 
-def _native_predict(jobs, fs_list):
-    """Run an indel-mode chunk through the port's native C++ engine on the
-    frame scores ``fs_list``. Raises RuntimeError when the engine is
-    disabled or cannot be built: no quiet fall-back onto the Python
-    engine."""
+def _native_predict(jobs, fs_list, allow_indels=False, allow_subs=False):
+    """Run a chunk through the port's native C++ engine, on the frame
+    scores ``fs_list`` or, with None, on the engine's own walk. Raises
+    RuntimeError when the engine is disabled or cannot be built: no quiet
+    fall-back onto the Python engine."""
     try:
         native_mod.get_lib()
         njobs = []
-        for (s, m, q, hq), fs in zip(jobs, fs_list):
+        for r, (s, m, q, hq) in enumerate(jobs):
             # the marshalled tables live as long as the Models
             nm = getattr(m, "_native_marshal", None)
             if nm is None:
                 nm = m._native_marshal = native_mod.NativeModels(m)
-            njobs.append((s, q, hq, fs, nm))
+            njobs.append((s, q, hq, None if fs_list is None else fs_list[r],
+                          nm))
     except native_mod.NativeUnavailable as exc:
-        raise RuntimeError(f"indel mode runs on the native engine, which is "
-                           f"unavailable: {exc}") from exc
-    genes = native_mod.predict_batch(njobs, allow_indels=True)
+        raise RuntimeError(f"the native route needs the native engine, "
+                           f"which is unavailable: {exc}") from exc
+    genes = native_mod.predict_batch(njobs, allow_indels=allow_indels,
+                                     allow_subs=allow_subs)
     counters["native_reads"] += len(jobs)
     return genes
 
 
-def _indel_chunk(jobs, device, bank_cache):
-    """Indel mode: the six-frame kernel on ``device``, then the native
-    engine. None when the chunk is outside this route's scope."""
-    if not _in_scope(jobs):
-        return None
-    fs_list = _frame_scores(jobs, device, bank_cache)
-    if fs_list is None:
-        return None
-    return _native_predict(jobs, fs_list)
+def _overlap_engine() -> bool:
+    """Whether chunk k runs on the worker thread while the main thread
+    prepares chunk k+1 (the JAX package's rule): ``GLIMMER_MG_TPU_OVERLAP``
+    = 0/1 decides; otherwise on with at least 4 host cores (the JAX
+    package measured a 20% loss on 2 cores, where the worker competes
+    with the native engine's threads)."""
+    env = os.environ.get("GLIMMER_MG_TPU_OVERLAP")
+    if env is not None:
+        return env != "0"
+    return (os.cpu_count() or 1) >= 4
 
 
-def _chunk_predictor(device, *, allow_indels, allow_subs, f64, host_engine):
-    """One call's chunk router, with the call's own bank cache: indel
-    chunks to the six-frame kernel and the native engine, the others to
-    the device path; chunks outside their scope, and every chunk with
-    ``host_engine``, to the exact host engine."""
-    bank_cache: OrderedDict = OrderedDict()
+_ENGINE_POOL = None
+_ENGINE_POOL_LOCK = threading.Lock()
 
-    def predict(jobs):
+
+def _engine_pool():
+    """The one worker thread that runs chunks behind the main thread.
+    Module-level, so that abandoned generators leak no threads; one
+    worker keeps chunks in order. It only ever runs bounded chunk jobs,
+    so interpreter exit, which joins it, cannot hang on it."""
+    global _ENGINE_POOL
+    with _ENGINE_POOL_LOCK:
+        if _ENGINE_POOL is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _ENGINE_POOL = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="gmt-engine")
+        return _ENGINE_POOL
+
+
+class _ChunkRouter:
+    """One call's chunk router. ``submit`` runs on the main thread: it
+    picks a chunk's route and, on the native route with
+    ``precompute="device"``, launches the six-frame kernel. ``_run`` does
+    the rest (the device DP, or the score copy's finish and the native
+    engine, or the host engine), on the worker thread when ``overlap``,
+    else in ``collect``. Each bank cache is touched by one thread only:
+    the device DP's by ``_run``, the six-frame bank's by ``submit``."""
+
+    def __init__(self, device, *, engine, precompute, allow_indels,
+                 allow_subs, f64):
+        _check_route(engine, precompute)
+        if device.type == "cuda" and device.index is None:
+            # the worker thread starts on device 0, so name the card
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.engine, self.precompute = engine, precompute
+        self.allow_indels, self.allow_subs, self.f64 = (allow_indels,
+                                                        allow_subs, f64)
+        self.dp_banks: OrderedDict = OrderedDict()
+        self.frame_banks: OrderedDict = OrderedDict()
+        self.overlap = _overlap_engine()
+        self.inflight: collections.deque = collections.deque()
+
+    def _route(self, jobs):
         if not jobs:
-            return []
-        genes = None
-        if allow_indels and not host_engine:
-            genes = _indel_chunk(jobs, device, bank_cache)
-        elif not host_engine:
-            genes = _device_dp_chunk(jobs, device, bank_cache, f64=f64,
-                                     allow_subs=allow_subs)
-        if genes is not None:
-            return genes
-        return _host_predict(jobs, allow_indels, allow_subs)
+            return "none"
+        if self.engine == "host" or not _in_scope(jobs):
+            return "host"
+        if self.allow_indels or self.engine == "native":
+            return "native"
+        return "device"
 
-    return predict
+    def submit(self, jobs):
+        route, fut = self._route(jobs), None
+        if route == "native" and self.precompute == "device":
+            fut = _frame_scores_dispatch(jobs, self.device, self.frame_banks)
+            if fut is None:
+                route = "host"  # the gene ICMs cannot share one kernel call
+        task = (route, jobs, fut)
+        self.inflight.append(_engine_pool().submit(self._run, task)
+                             if self.overlap else task)
+
+    def collect(self):
+        """The oldest submitted chunk's genes (re-raises its exception)."""
+        task = self.inflight.popleft()
+        return task.result() if self.overlap else self._run(task)
+
+    def _run(self, task):
+        route, jobs, fut = task
+        with (torch.cuda.device(self.device) if self.device.type == "cuda"
+              else contextlib.nullcontext()):
+            if route == "none":
+                return []
+            if route == "device":
+                genes = _device_dp_chunk(jobs, self.device, self.dp_banks,
+                                         f64=self.f64,
+                                         allow_subs=self.allow_subs)
+                if genes is not None:
+                    return genes
+            elif route == "native":
+                fs = None if fut is None else _frame_scores_finish(fut)
+                return _native_predict(jobs, fs, self.allow_indels,
+                                       self.allow_subs)
+            return _host_predict(jobs, self.allow_indels, self.allow_subs)
 
 
 def classes_models(classes, n, genome_data, *, parsed, user_icm, user_gc,
@@ -482,23 +627,26 @@ def run_glimmer_mg_classes(
     user_stop_codons=None,
     f64: bool = True,
     chunk_size: int = 2048,
-    host_engine: bool = False,
+    engine: str = "device",
+    precompute: str = "device",
 ):
     """glimmer-mg classification mode (-c): per-read model
     parameterization, predicted on ``device``. Yields (header,
     [TracedGene]) in the reference's emission order.
 
-    ``host_engine=True`` serves every read with the exact host engine, the
-    reference the device path is held to."""
+    ``engine`` ("device", "native" or "host") and ``precompute`` ("device"
+    or "host") pick the route (module docstring); ``engine="host"`` serves
+    every read with the exact host engine, the reference the other routes
+    are held to."""
     from ..io import features_file
     from .glimmer3 import gc_fraction
 
     device = _check_device(device)
     if allow_indels and allow_subs:
         raise ValueError("cannot use indels and subs simultaneously")
-    predict = _chunk_predictor(device, allow_indels=allow_indels,
-                               allow_subs=allow_subs, f64=f64,
-                               host_engine=host_engine)
+    router = _ChunkRouter(device, engine=engine, precompute=precompute,
+                          allow_indels=allow_indels, allow_subs=allow_subs,
+                          f64=f64)
     fudge_f32 = np.float32(1.0 if logodds_fudge is None else logodds_fudge)
 
     parsed = None
@@ -526,13 +674,18 @@ def run_glimmer_mg_classes(
     model_cache: dict = {}
     gd_tag = ("cls", _stable_tag(genome_data, "gd"))
     pending: list = []  # (header, seq_idx or None, models, quals, have_qual)
+    chunks: collections.deque = collections.deque()  # submitted, in order
 
-    def flush():
-        jobs = [(s, m, q, hq) for _h, s, m, q, hq in pending if m is not None]
-        genes = iter(predict(jobs))
-        for header, _s, models, _q, _hq in pending:
-            yield header, (next(genes) if models is not None else [])
+    def flush(final=False):
+        router.submit([(s, m, q, hq) for _h, s, m, q, hq in pending
+                       if m is not None])
+        chunks.append(list(pending))
         pending.clear()
+        # one chunk stays in flight while the next one is prepared
+        while len(chunks) > (0 if final else 1):
+            genes = iter(router.collect())
+            for header, _s, models, _q, _hq in chunks.popleft():
+                yield header, (next(genes) if models is not None else [])
 
     for header, seq in iter_sequences:
         prefix = header.split()[0]
@@ -558,7 +711,7 @@ def run_glimmer_mg_classes(
                             quals is not None))
         if len(pending) >= chunk_size:
             yield from flush()
-    yield from flush()
+    yield from flush(final=True)
 
 
 def run_glimmer_mg(
@@ -580,20 +733,21 @@ def run_glimmer_mg(
     stop_codons=None,
     f64: bool = True,
     chunk_size: int = 2048,
-    host_engine: bool = False,
+    engine: str = "device",
+    precompute: str = "device",
 ):
     """glimmer-mg with a user ICM (-m mode), predicted on ``device``.
-    Yields (header, [TracedGene]). ``host_engine=True`` serves every read
-    with the exact host engine."""
+    Yields (header, [TracedGene]). ``engine`` and ``precompute`` pick the
+    route as in :func:`run_glimmer_mg_classes`."""
     from ..io import features_file
     from .glimmer3 import gc_fraction, set_ignore_score_len
 
     device = _check_device(device)
     if allow_indels and allow_subs:
         raise ValueError("cannot use indels and subs simultaneously")
-    predict = _chunk_predictor(device, allow_indels=allow_indels,
-                               allow_subs=allow_subs, f64=f64,
-                               host_engine=host_engine)
+    router = _ChunkRouter(device, engine=engine, precompute=precompute,
+                          allow_indels=allow_indels, allow_subs=allow_subs,
+                          f64=f64)
 
     patterns = orf_mod.CodonPatterns.make(start_codons, stop_codons)
     if gc_frac is None:
@@ -633,13 +787,14 @@ def run_glimmer_mg(
         models.user_rbs = True
 
     pending: list = []
+    chunks: collections.deque = collections.deque()
 
-    def flush():
-        jobs = [(s, models, q, hq) for _h, s, q, hq in pending]
-        genes = predict(jobs)
-        for (header, *_rest), g in zip(pending, genes):
-            yield header, g
+    def flush(final=False):
+        router.submit([(s, models, q, hq) for _h, s, q, hq in pending])
+        chunks.append([h for h, *_rest in pending])
         pending.clear()
+        while len(chunks) > (0 if final else 1):
+            yield from zip(chunks.popleft(), router.collect())
 
     for header, seq in sequences:
         quals = None
@@ -648,4 +803,4 @@ def run_glimmer_mg(
         pending.append((header, dna.encode(seq), quals, quals is not None))
         if len(pending) >= chunk_size:
             yield from flush()
-    yield from flush()
+    yield from flush(final=True)

@@ -162,20 +162,53 @@ def _check(name, t, dtypes, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_ranges(gene_mip, indep_mip, reads, lengths, group, depth):
-    """Index ranges the kernel trusts: a walk of ``depth`` levels stays in
-    a table of (4^(depth+1)-1)/3 nodes (the null ICM has depth 2), group
-    rows lie in [0, G), lengths in [0, L]. One reduction and one host sync
-    for the value checks."""
+def _check_table_sizes(gene_mip, indep_mip, depth):
+    """Table sizes the kernel trusts: a walk of ``depth`` levels stays in a
+    table of (4^(depth+1)-1)/3 nodes (the null ICM has depth 2). Shapes
+    only: no host sync."""
     if gene_mip.shape[2] < (4 ** (depth + 1) - 1) // 3:
         raise ValueError(f"gene tables of {gene_mip.shape[2]} nodes are too "
                          f"small for depth {depth}")
     if indep_mip.shape[2] < 21:
         raise ValueError("null tables need the 21 nodes of depth 2")
+
+
+def _check_ranges(gene_mip, indep_mip, reads, lengths, group, depth,
+                  values=True):
+    """Index ranges the kernel trusts: the table sizes and, with
+    ``values``, group rows in [0, G) and lengths in [0, L] (one reduction
+    and one host sync)."""
+    _check_table_sizes(gene_mip, indep_mip, depth)
+    if not values:
+        return
     bad = ((group < 0) | (group >= gene_mip.shape[0]) | (lengths < 0)
            | (lengths > reads.shape[1]))
     if bool(bad.any()):
         raise ValueError("group must lie in [0, G) and lengths in [0, L]")
+
+
+def check_tables(gene_mip: np.ndarray, indep_mip: np.ndarray, depth: int):
+    """The six-frame tables' ranges, on the host before their upload (once
+    per bank): the table sizes for ``depth`` and every mip value in
+    [-2, 15]. Raises ValueError."""
+    _check_table_sizes(gene_mip, indep_mip, depth)
+    for name, mip in (("gene", gene_mip), ("null", indep_mip)):
+        if mip.size and (mip.min() < -2 or mip.max() > 15):
+            raise ValueError(f"{name} mip values must lie in [-2, 15]")
+
+
+def check_reads(reads: np.ndarray, lengths: np.ndarray, group: np.ndarray,
+                n_groups: int):
+    """A padded read batch's ranges, on the host before its upload: bases
+    in [0, 3], lengths in [0, L], groups in [0, ``n_groups``). Raises
+    ValueError."""
+    if reads.size and (reads.min() < 0 or reads.max() > 3):
+        raise ValueError("bases must lie in [0, 3]")
+    if lengths.size and (lengths.min() < 0
+                         or lengths.max() > reads.shape[1]):
+        raise ValueError("lengths must lie in [0, L]")
+    if group.size and (group.min() < 0 or group.max() >= n_groups):
+        raise ValueError("group must lie in [0, G)")
 
 
 def fold_pruned_probs(mip: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
@@ -190,7 +223,8 @@ def fold_pruned_probs(mip: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
 
 def mg_six_frame(gene_mip, gene_probs, indep_mip, indep_probs, reads, lengths,
                  group, model_len: int = 12, depth: int = 7,
-                 gene_periodicity: int = 3, folded=None):
+                 gene_periodicity: int = 3, folded=None,
+                 ranges_checked: bool = False):
     """Six-frame per-position gene/null log-probs of padded reads.
 
     Same arguments and return convention as
@@ -202,10 +236,18 @@ def mg_six_frame(gene_mip, gene_probs, indep_mip, indep_probs, reads, lengths,
     ``folded`` = (gene probs, null probs) from :func:`fold_pruned_probs`
     of the same tables, made once per bank; without it the CUDA route folds
     for this call. The CPU route ignores it (the twin backs up itself).
+
+    ``ranges_checked=True`` says that the caller checked the index values
+    on the host before the upload (``check_reads`` for each batch,
+    ``check_tables`` once per bank, as the prediction engine does): the
+    call then checks shapes, types and table sizes only, and makes no host
+    sync. Without it the group and length values are checked on the
+    tensors (one host sync on the card).
     """
     device = reads.device
     if device.type == "cpu":
-        _check_ranges(gene_mip, indep_mip, reads, lengths, group, depth)
+        _check_ranges(gene_mip, indep_mip, reads, lengths, group, depth,
+                      values=not ranges_checked)
         return icm_score.mg_six_frame_batch(
             gene_mip, gene_probs, indep_mip, indep_probs, reads, lengths,
             group, model_len=model_len, depth=depth,
@@ -247,7 +289,8 @@ def mg_six_frame(gene_mip, gene_probs, indep_mip, indep_probs, reads, lengths,
                 or indep_f.shape != indep_probs.shape):
             raise ValueError("folded tables must match gene_probs and "
                              "indep_probs")
-    _check_ranges(gene_mip, indep_mip, reads, lengths, group, depth)
+    _check_ranges(gene_mip, indep_mip, reads, lengths, group, depth,
+                  values=not ranges_checked)
     if folded is None:
         gene_f = fold_pruned_probs(gene_mip, gene_probs)
         indep_f = fold_pruned_probs(indep_mip, indep_probs)

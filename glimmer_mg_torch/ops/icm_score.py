@@ -113,6 +113,14 @@ def score_string(mip, probs, base_idx, frame0: int, model_len: int,
                             depth).sum(dim=-1)
 
 
+def cumulative_score(mip, probs, base_idx, frame0: int, model_len: int,
+                     depth: int):
+    """Running f32 total of the per-base log-probs, frame cycling,
+    flattened as ``jnp.cumsum`` flattens (a 1-D sequence stays 1-D)."""
+    return torch.cumsum(per_base_logprob(mip, probs, base_idx, frame0,
+                                         model_len, depth).reshape(-1), dim=0)
+
+
 def bank_score_reads(bank_mip, bank_probs, reads, lengths, model_len: int,
                      depth: int):
     """(B, M) total f32 log-prob of each padded read under each bank ICM,

@@ -1,7 +1,7 @@
 """Full glimmer-mg metagenomics pipeline on a chosen device.
 
 Counterpart of ``glimmer_mg_tpu.pipeline.glimmer_mg_pipe`` (reference
-scripts/glimmer-mg.py) without its mesh and profiler options:
+scripts/glimmer-mg.py) without its mesh option:
   1. Phymm classification (``parallel.phymm.classify_file``: the bank-walk
      kernel) -> rawPhymmOutput_*.txt, results.01.phymm_*.txt;
   2. top-k class parsing with the informative-genome filter ->
@@ -23,7 +23,7 @@ equivalents).
 ``informative_genomes``, ``running_top_k``, ``parse_phymm``, ``_per_read``,
 ``filter_predictions``, ``keep_start_features_only``, ``repredict`` and
 ``combine_predictions`` are copies of the JAX package's (``repredict``
-passes the device on): its module imports JAX.
+passes the device and the prediction route on): its module imports JAX.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from ..engine.glimmer_mg import _check_device
 from ..io.fasta import read_fasta
 from ..io.genome_data import GenomeData, parse_classes
 from ..parallel import phymm
-from ..utils.observe import StageTimers
+from ..utils.observe import StageTimers, profiler_trace
 from . import scimm, train_features as tf
 
 MIN_GENE_BP = 80000
@@ -169,9 +169,12 @@ def keep_start_features_only(features_text: str) -> str:
 
 def repredict(reads, genome_data, classes, out_prefix, *, device,
               filter_t=1.0, all_features=False, indels=False, subs=False,
-              qualities=None, initial_text=None, fudge=None):
+              qualities=None, initial_text=None, fudge=None,
+              engine="device", precompute="device"):
     """glimmer-mg.py:613 repredict (one iteration): retrain from the
-    previous predictions, then predict with the new models on ``device``."""
+    previous predictions, then predict with the new models on ``device``
+    on the route ``engine``/``precompute``
+    (``engine.glimmer_mg.run_glimmer_mg_classes``)."""
     prev = f"{out_prefix}.run1"
     seqs = dict(reads)
     filt = filter_predictions(initial_text, filter_t)
@@ -199,7 +202,7 @@ def repredict(reads, genome_data, classes, out_prefix, *, device,
             user_icm=gicm, user_rbs_pwm=rbs,
             features_path=f"{prev}.features.txt",
             qualities=qualities, allow_indels=indels, allow_subs=subs,
-            logodds_fudge=fudge,
+            logodds_fudge=fudge, engine=engine, precompute=precompute,
         )
     )
     text = _predict_to_text(res)
@@ -259,34 +262,44 @@ def run_pipeline(
     time_files: bool = False,
     timers: StageTimers | None = None,
     cluster_device: bool | None = None,
+    engine: str = "device",
+    precompute: str = "device",
+    profile_dir: str | None = None,
 ):
     """Full pipeline on ``device``; returns the final .predict path.
 
     ``iterate=0`` stops after the initial predictions (stages 1-3); the
     default ``iterate=1`` clusters the reads and repredicts each cluster
-    (stages 4-5). Error-free and substitution reads (``subs``, with or
-    without ``quality_file``) are predicted on the device path; indel
-    reads (``indels``) by the six-frame kernel on ``device``, then the
-    native C++ engine on the host. ``cluster_device`` picks the EM route
+    (stages 4-5). Every prediction stage takes the route ``engine`` /
+    ``precompute`` (``engine.glimmer_mg.run_glimmer_mg_classes``): by
+    default error-free and substitution reads (``subs``, with or without
+    ``quality_file``) are predicted on the device path; indel reads
+    (``indels``) by the six-frame kernel on ``device``, then the native
+    C++ engine on the host. ``cluster_device`` picks the EM route
     (``scimm.scimm_cluster``'s ``use_device``: ``None`` is the device EM
     on a CUDA device, the host EM on the CPU).
 
     Observability (SURVEY §5): ``timers`` collects per-stage wall-clock and
     reads/s / Mbp/s counters (stages ``phymm``, ``parse_phymm``, ``iter0``,
     ``cluster``, ``repredict``); ``time_files=True`` writes the reference's
-    ``time_<out>_<stage>.txt`` files (scripts/glimmer-mg.py:43-47).
+    ``time_<out>_<stage>.txt`` files (scripts/glimmer-mg.py:43-47);
+    ``profile_dir`` wraps the run in a torch.profiler trace
+    (``utils.observe.profiler_trace``).
     """
     device = _check_device(device)
+    mg._check_route(engine, precompute)
     timers = timers or StageTimers()
-    final = _run_pipeline_timed(
-        sequence_file, icm_dir, out_prefix, device=device,
-        top_hits=top_hits, iterate=iterate, filter_t=filter_t,
-        all_features=all_features, indels=indels, subs=subs,
-        quality_file=quality_file, fudge=fudge, taxonomy=taxonomy,
-        minbp_pct=minbp_pct, workdir=workdir, raw_done=raw_done,
-        class_done=class_done, clust_done=clust_done, timers=timers,
-        cluster_device=cluster_device,
-    )
+    with profiler_trace(profile_dir):
+        final = _run_pipeline_timed(
+            sequence_file, icm_dir, out_prefix, device=device,
+            top_hits=top_hits, iterate=iterate, filter_t=filter_t,
+            all_features=all_features, indels=indels, subs=subs,
+            quality_file=quality_file, fudge=fudge, taxonomy=taxonomy,
+            minbp_pct=minbp_pct, workdir=workdir, raw_done=raw_done,
+            class_done=class_done, clust_done=clust_done, timers=timers,
+            cluster_device=cluster_device, engine=engine,
+            precompute=precompute,
+        )
     if time_files:
         pre = (out_prefix if out_prefix is not None
                else os.path.splitext(os.path.basename(sequence_file))[0])
@@ -299,7 +312,8 @@ def _run_pipeline_timed(
     iterate=1, filter_t=1.0, all_features=False, indels=False, subs=False,
     quality_file=None, fudge=None, taxonomy=None, minbp_pct=0.01,
     workdir=".", raw_done=False, class_done=False, clust_done=False,
-    timers: StageTimers, cluster_device=None,
+    timers: StageTimers, cluster_device=None, engine="device",
+    precompute="device",
 ):
     os.makedirs(workdir, exist_ok=True)
     if out_prefix is None:
@@ -347,6 +361,7 @@ def _run_pipeline_timed(
             mg.run_glimmer_mg_classes(
                 reads, gd, classes, device=device, qualities=qualities,
                 allow_indels=indels, allow_subs=subs, logodds_fudge=fudge,
+                engine=engine, precompute=precompute,
             )
         )
         init_text = _predict_to_text(init_res)
@@ -404,7 +419,8 @@ def _run_pipeline_timed(
                     c_reads, gd, classes, c_prefix, device=device,
                     filter_t=filter_t, all_features=all_features,
                     indels=indels, subs=subs, qualities=qualities, fudge=fudge,
-                    initial_text=c_init_text,
+                    initial_text=c_init_text, engine=engine,
+                    precompute=precompute,
                 )
                 gf = f"{c_prefix}.run1.gene.fasta"
                 if os.path.exists(gf):

@@ -12,7 +12,8 @@ points. Each stage is a context manager that records wall-clock and optional
 work counters (reads, bp), from which reads/s and Mbp/s throughputs are
 derived — the BASELINE metrics. ``write_time_files`` emits the reference's
 ``time_<out>_<stage>.txt`` format (one ``%.3fs`` line per file) so tooling
-that consumed the reference's --time output keeps working.
+that consumed the reference's --time output keeps working. ``profiler_trace``
+wraps ``torch.profiler`` for on-demand host and CUDA traces.
 """
 
 from __future__ import annotations
@@ -117,6 +118,26 @@ class StageTimers:
         with open(os.path.join(workdir, f"time_{out_prefix}.txt"), "w") as fh:
             fh.write("%.3fs\n" % self.total_s)
 
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None):
+    """Optionally wrap a block in ``torch.profiler`` (host ops, and CUDA
+    kernels when a GPU is present) and write its Chrome trace,
+    ``<host>_<pid>.<time>.pt.trace.json``, into ``log_dir``. No-op when
+    ``log_dir`` is None."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
 
 class ProgressLog:
     """Phymm-style progress file, updated every ``every`` units

@@ -140,12 +140,12 @@ def test_second_call_with_other_options_is_not_stale(classes_case,
 
 
 def test_host_engine_route_matches_jax_host_engine(classes_case):
-    """host_engine=True serves every read with the exact host engine, on
+    """engine="host" serves every read with the exact host engine, on
     the port's classes-mode Models: the JAX package's host output."""
     gd, reads, cmap, host = classes_case
     tmg.reset_counters()
     got = list(tmg.run_glimmer_mg_classes(reads, gd, cmap, device="cpu",
-                                          host_engine=True))
+                                          engine="host"))
     _assert_same(host, got)
     assert tmg.counters["device_reads"] == 0
     assert tmg.counters["host_reads"] == len(cmap)

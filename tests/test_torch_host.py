@@ -6,7 +6,7 @@ modules and builds its own native engine into ``build/``. Here the port's
 native glimmer3 pass, feature files, RBS motif) write the same files, byte
 for byte, as the JAX package's on a small synthetic two-genome database,
 and every module of the port imports with ``glimmer_mg_tpu`` and ``jax``
-blocked.
+blocked, and its command line then predicts reads on the native route.
 """
 
 import os
@@ -67,6 +67,29 @@ def test_every_module_imports_without_the_jax_package():
             glimmer_mg_torch.__path__, "glimmer_mg_torch.")]
         for name in names:
             importlib.import_module(name)
+
+        import os, tempfile
+        import numpy as np
+        from glimmer_mg_torch import cli
+        from glimmer_mg_torch.engine import glimmer_mg as tmg
+        from glimmer_mg_torch.io.fasta import write_fasta
+        from glimmer_mg_torch.models import dna, icm, icm_train
+        from tests._torch_common import _gene_like, overlap_dense_reads
+
+        rng = np.random.default_rng(1)
+        train = [dna.encode(_gene_like(rng, 150, 0.5)) for _ in range(20)]
+        d = tempfile.mkdtemp()
+        icm.write_icm(icm_train.train_icm(train, model_len=12, depth=5),
+                      os.path.join(d, "m.icm"))
+        write_fasta(os.path.join(d, "r.fa"), overlap_dense_reads(3, 6))
+        assert cli.main(["glimmer-mg", os.path.join(d, "r.fa"),
+                         os.path.join(d, "out"), "-m", os.path.join(d, "m.icm"),
+                         "--device", "cpu", "--engine", "native"]) == 0
+        assert tmg.counters["native_reads"] == 6, tmg.counters
+        assert open(os.path.join(d, "out.predict")).read().count(">") == 6
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
+        assert not bad, bad
         print("OK", len(names))
     """)
     env = dict(os.environ)

@@ -156,3 +156,56 @@ def test_wrapper_rejects_other_devices(bank):
     t = [torch.from_numpy(np.ascontiguousarray(a)).to("meta") for a in bank]
     with pytest.raises(ValueError):
         icm_cuda.mg_six_frame(*t, model_len=12, depth=7)
+
+
+@pytest.mark.parametrize("case", OUT_OF_RANGE + ["base_high", "mip_high"])
+def test_host_checks_reject_out_of_range(bank, case):
+    """The prediction engine checks on the host, before the upload, what
+    the wrapper's device check rejects, and the bases and mip values the
+    kernel trusts: ``check_reads`` on each batch, ``check_tables`` once
+    per bank. Its calls then skip the device check (``ranges_checked``)."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in bank]
+    args, kw = out_of_range_call(t, case)
+    gmip, _gp, imip, _ip, reads, lengths, group = [np.array(a.numpy())
+                                                   for a in args]
+    if case == "base_high":
+        reads[0, 0] = 4
+    elif case == "mip_high":
+        gmip[0, 0, 0] = 16
+    with pytest.raises(ValueError):
+        icm_cuda.check_tables(gmip, imip, kw["depth"])
+        icm_cuda.check_reads(reads, lengths, group, gmip.shape[0])
+
+
+def test_host_checked_call_equals_twin(bank):
+    gmip, _gp, imip, _ip, reads, lengths, group = bank
+    icm_cuda.check_tables(gmip, imip, 7)
+    icm_cuda.check_reads(reads, lengths, group, gmip.shape[0])
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in bank]
+    got = icm_cuda.mg_six_frame(*t, model_len=12, depth=7,
+                                ranges_checked=True)
+    for a, b in zip(got, _twin(bank)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("frame0", [0, 2])
+def test_cumulative_score_matches_jax(bank, frame0):
+    """The running total of per-base terms that are bitwise equal to JAX's;
+    the sums' order differs (XLA's scan against torch's, which on the CPU
+    accumulates in f64), so each side is held within n x 2^-24 x the
+    running sum of |terms| of the exact f64 running total."""
+    gmip, gprobs, _im, _ip, reads, lengths, _g = bank
+    seq = reads[0, :lengths[0]]
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (gmip[0], gprobs[0], seq)]
+    terms = tis.per_base_logprob(*t, frame0, 12, 7).numpy()
+    assert np.array_equal(terms, np.asarray(jis.per_base_logprob(
+        gmip[0], gprobs[0], seq, frame0, 12, 7)))
+    want = np.asarray(jis.cumulative_score(gmip[0], gprobs[0], seq, frame0,
+                                           12, 7))
+    got = tis.cumulative_score(*t, frame0, 12, 7)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    exact = np.cumsum(terms.astype(np.float64))
+    bound = len(seq) * 2.0 ** -24 * np.cumsum(np.abs(terms.astype(np.float64)))
+    for side in (got.numpy(), want):
+        assert (np.abs(side - exact) <= bound).all()

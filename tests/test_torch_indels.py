@@ -51,7 +51,8 @@ def test_frame_scores_match_jax(indel_case):
                 fudge_f32=np.float32(1.0), min_gene_len=75,
                 max_olap_bases=50, circular=False, icm_cache={})
         jobs.append((dna.encode(s), m, None, False))
-    got = tmg._frame_scores(jobs, "cpu", OrderedDict())
+    got = tmg._frame_scores_finish(
+        tmg._frame_scores_dispatch(jobs, "cpu", OrderedDict()))
     want = jmg.device_frame_scores([(m, s) for s, m, _q, _hq in jobs])
     assert len(got) == len(want) == len(reads)
     for (s, *_r), a, b in zip(jobs, want, got):
@@ -82,8 +83,9 @@ def test_frame_bank_rows_are_shared(indel_case):
     assert len(rows) == len(models_list) <= n_classes < len(cache)
     assert int(grp.max()) == len(rows) - 1
     bank_cache = OrderedDict()
-    a = tmg._frame_scores(jobs, "cpu", bank_cache)
-    b = tmg._frame_scores(jobs[::-1], "cpu", bank_cache)
+    a, b = (tmg._frame_scores_finish(
+        tmg._frame_scores_dispatch(j, "cpu", bank_cache))
+        for j in (jobs, jobs[::-1]))
     assert len(bank_cache) == 1
     for x, y in zip(a, b[::-1]):
         assert np.array_equal(x.view(np.int64), y.view(np.int64))

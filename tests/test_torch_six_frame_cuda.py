@@ -212,3 +212,42 @@ def test_error_modes_on_card_match_cpu(cuda, mode):
     gpu = list(tmg.run_glimmer_mg(reads, gicm, device=cuda, **kw))
     assert icm_cuda.launches > 0
     assert tmg.format_predict_mg(gpu) == tmg.format_predict_mg(cpu)
+
+
+@pytest.mark.parametrize("overlap", ["1", "0"])
+@pytest.mark.parametrize("mode", ["error_free", "subs_quality_file"])
+def test_native_route_on_card_matches_host_precompute(cuda, monkeypatch,
+                                                      mode, overlap):
+    """``engine="native"`` with K1 on the card (scores packed on the card,
+    copied into pinned memory behind an event) gives the bytes of the
+    native engine's own walk (``precompute="host"``) and of the device
+    route, with K1 launched and every read counted in native_reads."""
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.models import dna, icm_train
+
+    from tests._torch_common import (
+        _gene_like, overlap_dense_reads, planted_stop_reads, quality_map,
+    )
+
+    monkeypatch.setenv("GLIMMER_MG_TPU_OVERLAP", overlap)
+    rng = np.random.default_rng(1)
+    train = [dna.encode(_gene_like(rng, 150, 0.38)) for _ in range(20)]
+    gicm = icm_train.train_icm(train, model_len=12, depth=7)
+    if mode == "error_free":
+        reads, kw = overlap_dense_reads(3, 40), {}
+    else:
+        reads = planted_stop_reads(6, 40)
+        kw = {"allow_subs": True, "qualities": quality_map(reads, 7)}
+    host = list(tmg.run_glimmer_mg(reads, gicm, device=cuda, engine="native",
+                                   precompute="host", chunk_size=16, **kw))
+    icm_cuda.reset_launches()
+    tmg.reset_counters()
+    got = list(tmg.run_glimmer_mg(reads, gicm, device=cuda, engine="native",
+                                  chunk_size=16, **kw))
+    assert icm_cuda.launches == 3  # one a chunk
+    assert tmg.counters["native_reads"] == len(reads)
+    want = tmg.format_predict_mg(host)
+    assert tmg.format_predict_mg(got) == want
+    dp = list(tmg.run_glimmer_mg(reads, gicm, device=cuda, chunk_size=16,
+                                 **kw))
+    assert tmg.format_predict_mg(dp) == want
