@@ -104,13 +104,33 @@ Phases (any failure raises and exits non-zero):
      to phase 6's, its parsed classes equal to phase 6's .class.txt) and
      glimmer-mg-pipeline --iterate 0 --raw --cls resumed from a copy of
      phase 6's work directory (.predict byte-identical). Prints each
-     call's wall time.
+     call's wall time;
+ 11. the (data, model) mesh on torch.distributed (parallel.mesh): a world
+     of 1 rank on NCCL in this process runs classify_file, scimm_cluster
+     and run_pipeline(iterate=1) on a 1x1 mesh at the full width of phases
+     6 and 6b (raw matrix and results table byte-identical to phase 6's,
+     cluster files and every pipeline file to phase 6b's warm run); then
+     2 ranks on the card (this script with --mesh-rank, started by
+     parallel.launch.run_local, both on cuda:0 with gloo named as the
+     backend: NCCL puts no two ranks on one card, so gloo takes the
+     collectives through host memory while K1 and K2 run on the card) run
+     classify_file on 1x2 and 2x1 meshes (files byte-identical to phase
+     6's, written by rank 0 only), the device EM on 2x1 (cluster files
+     byte-identical to phase 6b's) and data-sharded prediction of phase
+     5's reads on 2x1 (each rank K1 and the event DP on its shard of the
+     engine's chunks: records equal to the unsharded batches', the
+     device-served reads' .predict byte-identical to phase 5's, the same
+     overflow reads). Each rank's K2 on its last shard and K1 on its
+     widest shard are held bitwise to their twins. Prints per-rank walls,
+     K2 ms per shard (CUDA events) and gather and all-reduce ms (host
+     clock), and no scaling figure: one card shows none.
 
-K1's "launches" in the kernels record is the sum over the five paths it
+K1's "launches" in the kernels record is the sum over the six paths it
 runs on (phases 5, 7, 8 and 9, each counted from zero around its first
-pass or passes, and the repredict stage of phase 6b's counted run), K2's
-the sum over classification (phase 6) and the EM (phase 6b);
-"launches_by_path" gives each.
+pass or passes, the repredict stage of phase 6b's counted run, and phase
+11's pipeline and prediction, every rank's), K2's the sum over
+classification (phase 6), the EM (phase 6b) and phase 11's
+classification and EM; "launches_by_path" gives each.
 
 The script imports only glimmer_mg_torch and checks at the end that no
 module of JAX or of glimmer_mg_tpu was loaded.
@@ -131,6 +151,7 @@ second-to-last the kernels' JSON record, the last {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1332,24 +1353,31 @@ def widest_six_frame(active=lambda: True):
 def check_widest(name, widest):
     """Hold a captured K1 call (``widest_six_frame``) bitwise to its twin
     on the same inputs."""
+    assert widest, f"no K1 call was captured on the {name} route"
+    bitwise, (B, L, G) = k1_check(widest)
+    log(f"{name}: K1 vs twin on the route's own inputs (its call with the "
+        f"most bank rows): B={B} L={L} G={G} "
+        f"depth={widest['kw']['depth']}: "
+        f"{'bitwise equal' if bitwise else 'DIFFER'}")
+    assert bitwise, f"K1 differs from its twin on the {name} route"
+
+
+def k1_check(widest):
+    """A captured K1 call (``widest_six_frame``) against its twin on the
+    same inputs: (bitwise equal, [B, L, G])."""
     import torch
 
     from glimmer_mg_torch.ops import icm_score
 
-    assert widest, f"no K1 call was captured on the {name} route"
-    args, twin_kw = widest["args"], dict(widest["kw"])
-    twin_kw.pop("folded", None)
-    twin_kw.pop("ranges_checked", None)
-    tg, ti = icm_score.mg_six_frame_batch(*args, **twin_kw)
+    assert widest, "no K1 call was captured"
+    args, kw = widest["args"], dict(widest["kw"])
+    kw.pop("folded", None)
+    kw.pop("ranges_checked", None)
+    tg, ti = icm_score.mg_six_frame_batch(*args, **kw)
     kg, ki = widest["out"]
-    bitwise = (torch.equal(kg.view(torch.int32), tg.view(torch.int32))
-               and torch.equal(ki.view(torch.int32), ti.view(torch.int32)))
-    B, L = args[4].shape
-    log(f"{name}: K1 vs twin on the route's own inputs (its call with the "
-        f"most bank rows): B={B} L={L} G={widest['G']} "
-        f"depth={twin_kw['depth']}: "
-        f"{'bitwise equal' if bitwise else 'DIFFER'}")
-    assert bitwise, f"K1 differs from its twin on the {name} route"
+    same = (torch.equal(kg.view(torch.int32), tg.view(torch.int32))
+            and torch.equal(ki.view(torch.int32), ti.view(torch.int32)))
+    return same, [*map(int, args[4].shape), int(widest["G"])]
 
 
 def error_mode_phase(name, gd, reads, cmap, check, **kw):
@@ -1644,6 +1672,449 @@ def profile_pass(gd, reads, cmap):
                                           for k, v in top}))
 
 
+MESH_RANKS = 2
+MESH_TIMEOUT = 300  # seconds phase 11's ranks may take
+
+
+@contextlib.contextmanager
+def launcher_env(world, rank, port):
+    """For the block, the environment a launcher gives rank ``rank`` of a
+    world of ``world`` ranks on this machine."""
+    keys = {"RANK": str(rank), "LOCAL_RANK": str(rank),
+            "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(keys)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def last_k2():
+    """For the block, keep the last two-strand K2 call's arguments and a
+    copy of its output. The capture launches nothing itself."""
+    from glimmer_mg_torch.ops import icm_cuda
+
+    last = {}
+    real = icm_cuda.bank_score_both_strands
+
+    def capture(*a, **k):
+        res = real(*a, **k)
+        last.update(args=a, kw=k, out=res.clone())
+        return res
+
+    icm_cuda.bank_score_both_strands = capture
+    try:
+        yield last
+    finally:
+        icm_cuda.bank_score_both_strands = real
+
+
+def k2_check(last):
+    """A captured K2 call against its twin on the same inputs: (bitwise
+    equal, (B, M), the kernel's median ms over 5 launches, CUDA events)."""
+    import torch
+
+    from glimmer_mg_torch.ops import icm_cuda, icm_score
+
+    assert last, "no K2 call was captured"
+    (lm, pk, r, ln, *rest), kw = last["args"], last["kw"]
+    shape = dict(zip(("model_len", "depth"), rest), **kw)
+    rc = icm_score.revcomp_reads(r, ln)
+    want = torch.maximum(*(icm_score.bank_score_reads_packed(
+        lm, pk, x, ln, **shape) for x in (r, rc)))
+    torch.cuda.synchronize()
+    same = torch.equal(last["out"].view(torch.int32), want.view(torch.int32))
+    ms = cuda_ms(lambda: icm_cuda.bank_score_both_strands(*last["args"],
+                                                          **kw))
+    return same, [int(r.shape[0]), int(lm.shape[0])], ms
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock milliseconds of fn() (which synchronises)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def dir_files(d):
+    return {n: open(os.path.join(d, n), "rb").read()
+            for n in sorted(os.listdir(d))
+            if os.path.isfile(os.path.join(d, n))}
+
+
+def cluster_files(d):
+    return {n: b for n, b in dir_files(d).items()
+            if n.startswith(("cluster-", "icm-"))
+            and n.endswith((".fa", ".icm", ".scores.tmp"))}
+
+
+def mesh_rank(work):
+    """One of phase 11's ranks on the card, started by mesh_phase under a
+    launcher's environment, every rank on cuda:0 with gloo named as the
+    backend (NCCL puts no two ranks on one card). Runs classify_file on
+    1x2 and 2x1 meshes, the device EM on 2x1 and data-sharded prediction
+    of phase 5's reads on 2x1, each counted from zero and timed, each
+    kernel held to its twin on this rank's own last (K2) or widest (K1)
+    shard; writes what it saw to <work>/rank<r>.json (rank 0 also the
+    files)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.host import GenomeData, read_fasta
+    from glimmer_mg_torch.ops import device_predict as dpk, icm_cuda
+    from glimmer_mg_torch.parallel import mesh as pmesh, phymm
+    from glimmer_mg_torch.parallel.predict import predict_batch_sharded
+    from glimmer_mg_torch.pipeline import scimm
+
+    with open(os.path.join(work, "spec.json")) as fh:
+        spec = json.load(fh)
+    assert pmesh.init_distributed(device=spec["device"], backend="gloo")
+    rank = dist.get_rank()
+    dev = pmesh.rank_device(spec["device"])
+    res = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "wall_s": {}, "launches": {}, "k2": {}}
+    try:
+        for data, model in ((1, 2), (2, 1)):
+            tag = f"classify_file {data}x{model}"
+            mesh = pmesh.make_mesh(data, model, device=dev)
+            out = os.path.join(work, f"cf_{data}x{model}_rank{rank}")
+            os.makedirs(out)
+            icm_cuda.reset_launches()
+            with last_k2() as k2:
+                pmesh.barrier()
+                t0 = time.perf_counter()
+                phymm.classify_file(spec["fa"], spec["icm_dir"], out_dir=out,
+                                    device=dev, mesh=mesh)
+                torch.cuda.synchronize()
+                res["wall_s"][tag] = time.perf_counter() - t0
+            res["launches"][tag] = {"K2": icm_cuda.bank_walk_launches}
+            same, shape, ms = k2_check(k2)
+            block = k2["out"]
+
+            def gather():
+                pmesh.materialize(mesh, block)
+                torch.cuda.synchronize()
+
+            res["k2"][tag] = {"bitwise": same, "shape": shape, "ms": ms,
+                              "gather_ms": host_ms(gather)}
+
+        tag = "EM 2x1"
+        mesh = pmesh.make_mesh(2, 1, device=dev)
+        upper = list(read_fasta(spec["fa_upper"]))
+        icm_cuda.reset_launches()
+        with last_k2() as k2:
+            pmesh.barrier()
+            t0 = time.perf_counter()
+            assign, icms, cscores = scimm.scimm_cluster(
+                [s for _h, s in upper], np.array(spec["init"], np.int32),
+                spec["n_clusters"], device=dev, mesh=mesh)
+            torch.cuda.synchronize()
+            res["wall_s"][tag] = time.perf_counter() - t0
+        res["launches"][tag] = {"K2": icm_cuda.bank_walk_launches}
+        out = os.path.join(work, f"em_2x1_rank{rank}")
+        os.makedirs(out)
+        if pmesh.is_output_process():
+            scimm.write_cluster_artifacts(out, upper, assign, icms, cscores)
+        same, shape, ms = k2_check(k2)
+        hist = torch.zeros(spec["hist_numel"], dtype=torch.int64, device=dev)
+
+        def all_reduce():
+            pmesh.all_reduce_sum(hist, mesh.get_group("data"))
+            torch.cuda.synchronize()
+
+        res["k2"][tag] = {"bitwise": same, "shape": shape, "ms": ms,
+                          "all_reduce_ms": host_ms(all_reduce, 3)}
+
+        # data-sharded prediction: the engine's chunks of phase 5's reads
+        # (captured from its router), each through K1 and the event DP on
+        # this rank's shard, the records gathered
+        gd = GenomeData(spec["icm_dir"])
+        reads = [tuple(r) for r in spec["reads"]]
+        chunks = []
+        real = tmg._device_dp_chunk
+        tmg._device_dp_chunk = lambda jobs, *a, **k: (
+            chunks.append(jobs) or [[] for _ in jobs])
+        try:
+            order = [h for h, _g in tmg.run_glimmer_mg_classes(
+                reads, gd, spec["cmap"], device=dev)]
+        finally:
+            tmg._device_dp_chunk = real
+        assert sum(len(j) for j in chunks) == len(order) == len(reads)
+        tag = "predict 2x1"
+        batches, cache = [], collections.OrderedDict()
+        for jobs in chunks:
+            rows, models, *batch = tmg._chunk_batch(jobs, tmg._model_tag,
+                                                    dev)
+            bank = tmg._bank_for(rows, models, batch[0].shape[1], dev, cache)
+            batches.append((jobs, bank, [t.cpu().numpy() for t in batch]))
+        icm_cuda.reset_launches()
+        sharded = []
+        with widest_six_frame() as widest:
+            pmesh.barrier()
+            t0 = time.perf_counter()
+            for jobs, (bank, dev_bank), batch in batches:
+                sharded.append(predict_batch_sharded(mesh, bank, dev_bank,
+                                                     *batch))
+            torch.cuda.synchronize()
+            res["wall_s"][tag] = time.perf_counter() - t0
+        res["launches"][tag] = {"K1": icm_cuda.launches}
+        same, shape = k1_check(widest)
+        res["k1"] = {"bitwise": same, "shape": shape}
+        if pmesh.is_output_process():
+            # the unsharded batches on this rank, and the device-served
+            # reads' records as phase 5's .predict prints them
+            equal, served, n_over, lo = True, [], 0, 0
+            for outs, (jobs, (bank, dev_bank), batch) in zip(sharded,
+                                                             batches):
+                t = [torch.from_numpy(a).to(dev) for a in batch]
+                g6, i6 = icm_cuda.mg_six_frame(
+                    dev_bank["gene_mip"], dev_bank["gene_probs"],
+                    dev_bank["indep_mip"], dev_bank["indep_probs"], *t,
+                    model_len=bank.model_len, depth=bank.depth,
+                    gene_periodicity=bank.periodicity)
+                plain = dpk.predict_batch_device(bank, dev_bank, *t, g6, i6)
+                equal &= all(np.array_equal(a, b)
+                             for a, b in zip(outs, plain))
+                genes, overflow = dpk.finish_genes(outs, len(jobs))
+                n_over += int(overflow[:len(jobs)].sum())
+                served += [(order[lo + r], g) for r, g in enumerate(genes)
+                           if not overflow[r]]
+                lo += len(jobs)
+            res["predict"] = {"equal_to_unsharded": equal,
+                              "overflow_reads": n_over,
+                              "served": len(served)}
+            with open(os.path.join(work, "predict_sharded.txt"), "w") as fh:
+                fh.write(tmg.format_predict_mg(served))
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        pmesh.destroy()
+
+
+def mesh_phase(root, icm_dir, reads, cmap, out5, overflow5):
+    """Phase 11: the (data, model) mesh. A world of 1 rank on NCCL in this
+    process runs classify_file, scimm_cluster and run_pipeline(iterate=1)
+    at the full width of phases 6 and 6b; then 2 ranks on the card, gloo
+    named as their backend, run classify_file on 1x2 and 2x1, the device
+    EM on 2x1 and data-sharded prediction of phase 5's reads
+    (``mesh_rank``). Every file is held byte for byte to the phase that
+    made it, every kernel to its twin on a rank's own shard. Returns the
+    (K1, K2) launches of the phase's paths, every rank's summed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from glimmer_mg_torch.engine import glimmer_mg as tmg
+    from glimmer_mg_torch.host import read_fasta
+    from glimmer_mg_torch.ops import icm_cuda
+    from glimmer_mg_torch.parallel import mesh as pmesh, phymm
+    from glimmer_mg_torch.parallel.launch import free_port, run_local
+    from glimmer_mg_torch.pipeline import glimmer_mg_pipe as pipe, scimm
+
+    card = gpu_line()
+    work = os.path.join(root, "mesh")
+    os.makedirs(work)
+    fa = os.path.join(root, "reads.fa")
+    fa_upper = os.path.join(root, "upper", "reads.fa")
+    phase6 = dir_files(os.path.join(root, "pipe"))
+    phase6b_dir = os.path.join(root, "pipe_iter_warm")
+    phase6b = dir_files(phase6b_dir)
+    names = (phymm.raw_phymm_name(fa), phymm.results_name(fa))
+    taxonomy = family_taxonomy(icm_dir)
+    upper = list(read_fasta(fa_upper))
+    init, clusters = scimm.init_clusters_from_results(
+        os.path.join(phase6b_dir, names[1]), [h.split()[0] for h, _ in upper],
+        taxonomy, minbp_pct=0.01,
+        read_lengths=np.array([len(s) for _h, s in upper]))
+    hist_numel = len(clusters) * 3 * 4 ** 7 * 11 * 16  # level 7, int64
+    k1 = k2 = 0
+
+    t_a = time.perf_counter()
+    backend = pmesh.default_backend(DEVICE)
+    with launcher_env(1, 0, free_port()):
+        assert pmesh.init_distributed(device=DEVICE)
+    try:
+        assert dist.get_backend() == backend, dist.get_backend()
+        mesh = pmesh.make_mesh(1, 1, device=DEVICE)
+        dev = pmesh.rank_device(DEVICE)
+        out = os.path.join(work, "classify_1x1")
+        os.makedirs(out)
+        icm_cuda.reset_launches()
+        with last_k2() as k2_last:
+            t0 = time.perf_counter()
+            phymm.classify_file(fa, icm_dir, out_dir=out, device=dev,
+                                mesh=mesh)
+            torch.cuda.synchronize()
+            wall_c = time.perf_counter() - t0
+        k2_c = icm_cuda.bank_walk_launches
+        got = dir_files(out)
+        same_c = all(got[n] == phase6[n] for n in names)
+        same_k2, shape, k2_ms = k2_check(k2_last)
+        log(f"11a classify_file on the 1x1 mesh ({backend}, {dev}): raw "
+            f"matrix and results table "
+            f"{'byte-identical' if same_c else 'DIFFER'} to phase 6's; K2 "
+            f"launches {k2_c}; K2 on the rank's last shard {shape} vs twin: "
+            f"{'bitwise equal' if same_k2 else 'DIFFER'}; wall "
+            f"{wall_c:.4f} s; {card}")
+        assert same_c and same_k2 and k2_c > 0
+        k2 += k2_c
+
+        icm_cuda.reset_launches()
+        t0 = time.perf_counter()
+        assign, icms, cscores = scimm.scimm_cluster(
+            [s for _h, s in upper], init, len(clusters), device=dev,
+            mesh=mesh)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k2_s = icm_cuda.bank_walk_launches
+        out = os.path.join(work, "scimm_1x1")
+        os.makedirs(out)
+        scimm.write_cluster_artifacts(out, upper, assign, icms, cscores)
+        got, want = cluster_files(out), cluster_files(phase6b_dir)
+        same_s = got == want and len(want) == 3 * len(clusters)
+        log(f"11a scimm_cluster on the 1x1 mesh: {len(want)} cluster files "
+            f"{'byte-identical' if same_s else 'DIFFER'} to phase 6b's; K2 "
+            f"launches {k2_s}; wall {wall_s:.4f} s; {card}")
+        assert same_s and k2_s > 0
+        k2 += k2_s
+
+        icm_cuda.reset_launches()
+        t0 = time.perf_counter()
+        final = pipe.run_pipeline(fa_upper, icm_dir, device=dev, iterate=1,
+                                  taxonomy=taxonomy, mesh=mesh,
+                                  workdir=os.path.join(work, "pipe_1x1"))
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+        k1_p, k2_p = icm_cuda.launches, icm_cuda.bank_walk_launches
+        got = dir_files(os.path.dirname(final))
+        diff = sorted(n for n in set(got) | set(phase6b)
+                      if got.get(n) != phase6b.get(n))
+        log(f"11a run_pipeline(iterate=1) on the 1x1 mesh: {len(got)} files "
+            f"({len(phase6b)} in phase 6b's warm run), "
+            f"{'every one byte-identical' if not diff else f'DIFFER: {diff}'}"
+            f"; K1 launches {k1_p}, K2 {k2_p}; wall {wall_p:.4f} s; {card}")
+        assert not diff and k1_p > 0 and k2_p > 0
+        k1, k2 = k1 + k1_p, k2 + k2_p
+
+        hist = torch.zeros(hist_numel, dtype=torch.int64, device=dev)
+
+        def all_reduce():
+            dist.all_reduce(hist)
+            torch.cuda.synchronize()
+
+        log(f"11a timing, 1 rank, so no scaling figure: K2 ms on the rank's "
+            f"last shard {shape} (CUDA events, median of 5) {k2_ms:.4f}; "
+            f"all-reduce of the {8 * hist_numel}-byte level-7 histogram on "
+            f"the world group ({backend}, host clock, median of 3) "
+            f"{host_ms(all_reduce, 3):.4f} ms (the mesh's own groups have "
+            f"one rank and skip it); {card}")
+    finally:
+        pmesh.destroy()
+    log(f"phase 11a: 1 rank on {backend}, {time.perf_counter() - t_a:.1f} s")
+
+    t_b = time.perf_counter()
+    with open(os.path.join(work, "spec.json"), "w") as fh:
+        json.dump({"device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
+                   "fa": fa, "fa_upper": fa_upper, "icm_dir": icm_dir,
+                   "init": init.tolist(), "n_clusters": len(clusters),
+                   "hist_numel": hist_numel, "reads": reads, "cmap": cmap},
+                  fh)
+    run_local([os.path.abspath(__file__), "--mesh-rank", work], MESH_RANKS,
+              timeout=MESH_TIMEOUT)
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    assert all(x["backend"] == "gloo" for x in ranks), ranks
+    for data, model in ((1, 2), (2, 1)):
+        tag = f"classify_file {data}x{model}"
+        got = dir_files(os.path.join(work, f"cf_{data}x{model}_rank0"))
+        same = all(got[n] == phase6[n] for n in names)
+        others = [dir_files(os.path.join(work, f"cf_{data}x{model}_rank{r}"))
+                  for r in range(1, MESH_RANKS)]
+        k = [x["k2"][tag] for x in ranks]
+        log(f"11b {tag} (gloo, {MESH_RANKS} ranks on one card): raw matrix "
+            f"and results table {'byte-identical' if same else 'DIFFER'} to "
+            f"phase 6's, written by rank 0 only: {not any(others)}; K2 "
+            f"launches per rank {[x['launches'][tag]['K2'] for x in ranks]}"
+            f"; each rank's K2 on its last shard "
+            f"{[x['shape'] for x in k]} vs twin: "
+            f"{'bitwise equal' if all(x['bitwise'] for x in k) else 'DIFFER'}")
+        log(f"11b {tag} timing, {MESH_RANKS} ranks on one card, so no "
+            f"scaling figure: wall per rank (s) "
+            f"{[round(x['wall_s'][tag], 4) for x in ranks]}; K2 ms on each "
+            f"rank's last shard (CUDA events, median of 5) "
+            f"{[round(x['ms'], 4) for x in k]}; gather of that block ms "
+            f"(host clock, median of 5) "
+            f"{[round(x['gather_ms'], 4) for x in k]}; {card}")
+        assert same and not any(others)
+        assert all(x["bitwise"] for x in k)
+        assert all(x["launches"][tag]["K2"] > 0 for x in ranks)
+        k2 += sum(x["launches"][tag]["K2"] for x in ranks)
+
+    tag = "EM 2x1"
+    got = cluster_files(os.path.join(work, "em_2x1_rank0"))
+    same = got == cluster_files(phase6b_dir) and len(got) > 0
+    others = [dir_files(os.path.join(work, f"em_2x1_rank{r}"))
+              for r in range(1, MESH_RANKS)]
+    k = [x["k2"][tag] for x in ranks]
+    log(f"11b scimm_cluster on the 2x1 mesh (gloo): {len(got)} cluster files "
+        f"{'byte-identical' if same else 'DIFFER'} to phase 6b's, written by "
+        f"rank 0 only: {not any(others)}; K2 launches per rank "
+        f"{[x['launches'][tag]['K2'] for x in ranks]}; each rank's K2 on its "
+        f"last shard {[x['shape'] for x in k]} vs twin: "
+        f"{'bitwise equal' if all(x['bitwise'] for x in k) else 'DIFFER'}; "
+        f"wall per rank (s) {[round(x['wall_s'][tag], 4) for x in ranks]}; "
+        f"K2 ms per shard {[round(x['ms'], 4) for x in k]}; all-reduce of "
+        f"the {8 * hist_numel}-byte level-7 histogram over the data group "
+        f"(gloo through host memory, host clock, median of 3) ms "
+        f"{[round(x['all_reduce_ms'], 4) for x in k]}; {card}")
+    assert same and not any(others) and all(x["bitwise"] for x in k)
+    assert all(x["launches"][tag]["K2"] > 0 for x in ranks)
+    k2 += sum(x["launches"][tag]["K2"] for x in ranks)
+
+    tag = "predict 2x1"
+    pred = ranks[0]["predict"]
+    with open(os.path.join(work, "predict_sharded.txt")) as fh:
+        text = fh.read()
+    served = set(predict_blocks(text))
+    want = tmg.format_predict_mg([(h, g) for h, g in out5 if h in served])
+    same = text == want
+    log(f"11b data-sharded prediction of phase 5's {len(reads)} reads on the "
+        f"2x1 mesh (gloo): gene records and event counts "
+        f"{'equal' if pred['equal_to_unsharded'] else 'DIFFER'} to the "
+        f"unsharded batches'; {pred['served']} device-served reads' .predict "
+        f"{'byte-identical' if same else 'DIFFER'} to phase 5's; overflow "
+        f"reads {pred['overflow_reads']} (phase 5: {overflow5}); K1 launches "
+        f"per rank {[x['launches'][tag]['K1'] for x in ranks]}; each rank's "
+        f"K1 on its widest shard {[x['k1']['shape'] for x in ranks]} (B, L, "
+        f"G) vs twin: "
+        f"{'bitwise equal' if all(x['k1']['bitwise'] for x in ranks) else 'DIFFER'}"
+        f"; wall per rank (s) "
+        f"{[round(x['wall_s'][tag], 4) for x in ranks]}; {card}")
+    assert pred["equal_to_unsharded"] and same
+    assert pred["overflow_reads"] == overflow5
+    assert pred["served"] == len(reads) - overflow5
+    assert all(x["k1"]["bitwise"] for x in ranks)
+    assert all(x["launches"][tag]["K1"] > 0 for x in ranks)
+    k1 += sum(x["launches"][tag]["K1"] for x in ranks)
+    log(f"phase 11b: {MESH_RANKS} ranks on gloo, "
+        f"{time.perf_counter() - t_b:.1f} s")
+    return k1, k2
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reads", type=int, default=8192)
@@ -1654,12 +2125,17 @@ def main(argv=None):
                     help="decoy genome ICMs added to the 4 trained ones")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm pass (device busy share)")
+    ap.add_argument("--mesh-rank", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)  # one of phase 11's ranks
     args = ap.parse_args(argv)
 
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA GPU; none is available")
+    if args.mesh_rank:
+        mesh_rank(args.mesh_rank)
+        return
 
     from glimmer_mg_torch import _build
     from glimmer_mg_torch.engine import glimmer_mg as tmg
@@ -1773,6 +2249,10 @@ def main(argv=None):
         t0 = time.perf_counter()
         cli_phase(root, icm_dir, reads, cmap, out, fa)
         log(f"phase 10 (CLI): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        k1_paths["mesh"], k2_mesh = mesh_phase(root, icm_dir, reads, cmap,
+                                               out, counts["overflow_reads"])
+        log(f"phase 11 (mesh): {time.perf_counter() - t0:.1f} s")
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
@@ -1780,8 +2260,8 @@ def main(argv=None):
     record["launches"] = sum(k1_paths.values())
     record["launches_by_path"] = k1_paths
     k2_record["launches_by_path"] = {"classify": k2_launches,
-                                     "scimm": k2_scimm}
-    k2_record["launches"] = k2_launches + k2_scimm
+                                     "scimm": k2_scimm, "mesh": k2_mesh}
+    k2_record["launches"] = k2_launches + k2_scimm + k2_mesh
     k2_int8_record["launches"] = k2_int8_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

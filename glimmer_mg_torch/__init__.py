@@ -17,8 +17,14 @@ is the port's own:
   ops/frontend.py       ORF/start-candidate frontend and event assembly
   ops/event_dp.py       windowed event-graph DP and traceback
   engine/glimmer_mg.py  run_glimmer_mg / run_glimmer_mg_classes
-  parallel/classify.py  classification steps (both strands, per-read max)
+  parallel/classify.py  classification steps (both strands, per-read max),
+                        on one rank or over a mesh
   parallel/phymm.py     PhymmBank, classify_file, Phymm file formats
+  parallel/mesh.py      the (data, model) mesh of ranks on
+                        torch.distributed and its sharding helpers
+  parallel/predict.py   device prediction sharded over the data axis
+  parallel/dryrun.py    every mesh path once over a world of ranks
+  parallel/launch.py    a world of ranks started on this machine
   pipeline/glimmer_mg_pipe.py  run_pipeline, stages 1-3 (classify ->
                         parse classes -> predict)
 

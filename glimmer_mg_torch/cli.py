@@ -9,9 +9,12 @@ driven by this framework interchangeably. They are the counterparts of
 commands that run on a device (glimmer-mg, classify, glimmer-mg-pipeline)
 take ``--device`` (default ``cuda``, an error where CUDA is absent), and
 glimmer-mg and glimmer-mg-pipeline the prediction route ``--engine``
-(device, native, host) and ``--precompute`` (device, host). The mesh and
-multi-host options need ``torch.distributed``, which the port does not
-have yet (ROADMAP A6): given, they stop with a parser error.
+(device, native, host) and ``--precompute`` (device, host). ``--mesh
+DATA,MODEL`` shards classify and the pipeline's classification and
+clustering over a (data, model) mesh of ranks on ``torch.distributed``
+(``parallel.mesh``): one process per rank, the world described by a
+launcher (``torchrun``) or, for classify, by ``--coordinator``,
+``--num_procs`` and ``--proc_id`` given together.
 """
 
 from __future__ import annotations
@@ -56,12 +59,43 @@ def _device(p, name):
         p.error(f"--device {name}: {exc}")
 
 
-def _no_distributed(p, *flags):
-    """A parser error for the mesh and multi-host options that were given."""
-    given = [f for f, v in flags if v is not None]
-    if given:
-        p.error(f"{', '.join(given)}: the port has no torch.distributed "
-                "route yet (ROADMAP A6)")
+def _mesh(p, spec, device, multihost=(None, None, None)):
+    """Join the world of ranks and build the ``--mesh DATA,MODEL`` mesh on
+    it; a parser error names what is wrong. ``multihost`` is (coordinator,
+    num_procs, proc_id), all given or none; with none, the world is the
+    one a launcher describes in the environment. Nothing joins a world
+    without ``spec`` or ``multihost``. Returns (mesh or None, this rank's
+    device)."""
+    from .parallel import mesh as pmesh
+
+    coordinator, num_procs, proc_id = multihost
+    if any(v is not None for v in multihost):
+        if coordinator is None or num_procs is None or proc_id is None:
+            p.error("--coordinator, --num_procs and --proc_id must be given "
+                    "together")
+        if not 0 <= proc_id < num_procs:
+            p.error("--proc_id must satisfy 0 <= proc_id < num_procs")
+    elif spec is None:
+        return None, device
+    if spec is not None:
+        try:
+            data, model = (int(x) for x in spec.split(","))
+        except ValueError:
+            p.error(f"--mesh {spec}: expected DATA,MODEL")
+    if not pmesh.init_distributed(*multihost, device=device):
+        if spec is None:  # --num_procs 1: one process, as without the flags
+            return None, device
+        p.error(f"--mesh {spec} needs a world of ranks: run under a launcher "
+                "(torchrun) or give --coordinator, --num_procs and "
+                "--proc_id")
+    if spec is None:
+        return None, pmesh.rank_device(device)
+    try:
+        mesh = pmesh.make_mesh(data, model, device=device)
+    except ValueError as exc:
+        pmesh.destroy()
+        p.error(f"--mesh {spec}: {exc}")
+    return mesh, pmesh.rank_device(device)
 
 
 def cmd_build_icm(argv):
@@ -600,18 +634,22 @@ def cmd_classify(argv):
                    help="shard over a (data, model) device mesh, e.g. 4,2 "
                         "(the reference phymm_par.py -p fan-out)")
     p.add_argument("--coordinator", metavar="HOST:PORT",
-                   help="multi-host: coordinator address (ROADMAP A6)")
+                   help="multi-host: rank 0's rendezvous address")
     p.add_argument("--num_procs", type=int, help="multi-host: process count")
     p.add_argument("--proc_id", type=int, help="multi-host: this process id")
     _add_device(p)
     a = p.parse_args(argv)
-    _no_distributed(p, ("--mesh", a.mesh), ("--coordinator", a.coordinator),
-                    ("--num_procs", a.num_procs), ("--proc_id", a.proc_id))
     device = _device(p, a.device)
+    mesh, device = _mesh(p, a.mesh, device,
+                         (a.coordinator, a.num_procs, a.proc_id))
+    from .parallel import mesh as pmesh
     from .parallel.phymm import classify_file
 
-    classify_file(a.sequence_file, a.icm_dir, out_dir=a.out_dir, batch=a.batch,
-                  device=device)
+    try:
+        classify_file(a.sequence_file, a.icm_dir, out_dir=a.out_dir,
+                      batch=a.batch, device=device, mesh=mesh)
+    finally:
+        pmesh.destroy()
 
 
 def cmd_glimmer_mg_pipeline(argv):
@@ -644,22 +682,27 @@ def cmd_glimmer_mg_pipeline(argv):
                    help="stage timing/throughput lines to stderr")
     _add_device(p, route=True)
     a = p.parse_args(argv)
-    _no_distributed(p, ("--mesh", a.mesh))
     device = _device(p, a.device)
+    mesh, device = _mesh(p, a.mesh, device)
+    from .parallel import mesh as pmesh
     from .pipeline.glimmer_mg_pipe import run_pipeline
     from .utils.observe import StageTimers, set_verbose
 
     set_verbose(a.verbose)
     timers = StageTimers()
-    final = run_pipeline(
-        a.sequence_file, a.icm_dir, a.out,
-        top_hits=a.top_hits, iterate=a.iterate, filter_t=a.filter_t,
-        all_features=a.all_features, indels=a.indel, subs=a.sub,
-        quality_file=a.quality, fudge=a.fudge, workdir=a.workdir,
-        raw_done=a.raw, class_done=a.cls, clust_done=a.clust,
-        time_files=a.time, timers=timers, profile_dir=a.profile,
-        device=device, engine=a.engine, precompute=a.precompute,
-    )
+    try:
+        final = run_pipeline(
+            a.sequence_file, a.icm_dir, a.out,
+            top_hits=a.top_hits, iterate=a.iterate, filter_t=a.filter_t,
+            all_features=a.all_features, indels=a.indel, subs=a.sub,
+            quality_file=a.quality, fudge=a.fudge, workdir=a.workdir,
+            raw_done=a.raw, class_done=a.cls, clust_done=a.clust,
+            time_files=a.time, timers=timers, profile_dir=a.profile,
+            device=device, engine=a.engine, precompute=a.precompute,
+            mesh=mesh,
+        )
+    finally:
+        pmesh.destroy()
     if a.verbose:
         print(timers.report(), file=sys.stderr)
     print(final)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.icm import num_tree_nodes
+from ..parallel import mesh as pmesh
 
 MUT_INFO_BIAS = 0.03
 MUT_INFO_EPSILON = 1e-4
@@ -161,6 +162,7 @@ def train_icm_bank(
     depth: int = 7,
     periodicity: int = 3,
     record: dict | None = None,
+    data_group=None,
 ):
     """Train ``n_models`` ICMs from weighted reads on the reads' device;
     returns (mip (M, P, N) int32, probs (M, P, N, 4) f32 logged), zero
@@ -172,6 +174,12 @@ def train_icm_bank(
     16 terms' magnitudes (M, P, nodes, W) f32 and the sample sizes (M, P,
     nodes) int64 are appended under ``"mi"``, ``"mag"`` and ``"sums"``,
     for ``icm_train_check.tie_nodes``.
+
+    ``data_group``: a ``torch.distributed`` group whose ranks hold the
+    other shards of the reads (the counterpart of the JAX package's
+    ``data_axis``): each level's histogram is summed over it before the
+    mutual information. The counts are exact integers, so every rank
+    trains the bank that one rank holding all the reads would.
     """
     p = periodicity
     n_nodes = num_tree_nodes(depth)
@@ -195,9 +203,10 @@ def train_icm_bank(
     flat_valid = valid.reshape(-1)
 
     def level_counts(node_local, nodes_on_level, level_valid):
-        return level_histogram(flat_model, flat_frame, flat_ctx, flat_last,
-                               node_local, level_valid, n_models, p,
-                               nodes_on_level, model_len)
+        counts = level_histogram(flat_model, flat_frame, flat_ctx, flat_last,
+                                 node_local, level_valid, n_models, p,
+                                 nodes_on_level, model_len)
+        return pmesh.all_reduce_sum(counts, data_group)
 
     def keep(counts, mi, sums):
         if record is not None:

@@ -1,20 +1,25 @@
-"""Read classification and EM clustering steps.
+"""Read classification and EM clustering steps, on one rank or sharded.
 
-Counterpart of ``glimmer_mg_tpu.parallel.classify`` without its mesh: a
-dense (reads x models) score matrix, forward and reverse-complement,
-per-read max (the Phymm scripts' fwd/rev max, reference
-scripts/scoreReadsGlim.pl:450-482), then the argmax.
+Counterpart of ``glimmer_mg_tpu.parallel.classify``: a dense (reads x
+models) score matrix, forward and reverse-complement, per-read max (the
+Phymm scripts' fwd/rev max, reference scripts/scoreReadsGlim.pl:450-482),
+then the argmax.
 
   * ``classify_step``: the exact f32 walk (``ops.icm_score``);
   * ``classify_step_kernel``: the 16-bit fixed-point bank walk over both
     strands, ``ops.icm_cuda.bank_score_both_strands`` (one launch of the
     CUDA kernel on CUDA tensors, its twin on CPU tensors), the
     counterpart of ``classify_step_pallas``;
+  * ``classify_step_kernel_sharded``: the same walk over a (data, model)
+    mesh of ranks (``parallel.mesh``), each rank on its (read shard x
+    model shard) block, the counterpart of ``classify_step_pallas_sharded``;
   * ``em_step``: one Scimm EM step (SURVEY P12): classify with the exact
     walk, hard-assign, retrain the whole bank with
-    ``ops.icm_train_device.train_icm_bank``.
+    ``ops.icm_train_device.train_icm_bank``; with a mesh, on the rank's
+    shards, the counts summed over the data group.
 
-``torch.argmax`` returns the first maximal index, as ``jnp.argmax`` does.
+``torch.argmax`` and ``np.argmax`` return the first maximal index, as
+``jnp.argmax`` does.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from ..models import dna
 from ..ops import icm_cuda, icm_score, icm_train_device
 from ..ops.icm_score import revcomp_reads
+from . import mesh as pmesh
 
 
 def _with_best(scores):
@@ -49,21 +55,58 @@ def classify_step_kernel(level_mip, probs_pk, reads, lengths, model_len=12,
         level_mip, probs_pk, reads, lengths, model_len, depth))
 
 
+def classify_step_kernel_sharded(mesh, level_mip, probs_pk, reads, lengths,
+                                 model_len=12, depth=7):
+    """``classify_step_kernel`` over a (data, model) mesh of ranks.
+
+    Each rank runs the bank walk on its local block: ``level_mip`` and
+    ``probs_pk`` are its slice of the packed tables along ``model``
+    (``mesh.shard_bank``), ``reads`` and ``lengths`` its slice of the
+    batch along ``data`` (``mesh.shard_reads``): the reference's two
+    phymm_par.py fan-out modes at once (ICM-sharded :146-200, read-sharded
+    :210-261), with the all-gather as the file merge. Returns (scores
+    (B, M) f32, best (B,) int32) numpy, the whole matrix on every rank in
+    global order, so the argmax breaks ties as the one-rank run does.
+    """
+    block = icm_cuda.bank_score_both_strands(level_mip, probs_pk, reads,
+                                             lengths, model_len, depth)
+    scores = pmesh.materialize(mesh, block)
+    return scores, np.argmax(scores, axis=1).astype(np.int32)
+
+
 def em_step(bank_mip, bank_probs, reads, lengths, n_models: int,
-            model_len: int = 12, depth: int = 7, periodicity: int = 3):
+            model_len: int = 12, depth: int = 7, periodicity: int = 3,
+            mesh=None):
     """One full Scimm-style EM training step on the reads' device.
 
     classify -> hard assignment -> retrain the whole bank from windowed
     context counts (chi-square deleted interpolation) -> return the new
     bank plus the assignment: (new_mip, new_probs, best, scores).
+
+    With ``mesh`` the arguments are this rank's shards: the bank's slice
+    along ``model`` (padded to the axis with ``mesh.pad_models``), the
+    reads' along ``data``. The scores are gathered (``best`` and
+    ``scores`` cover the whole batch and the first ``n_models`` models,
+    numpy), each rank assigns its own reads, and the trainer sums the
+    counts over the data group, so every rank returns the whole new bank.
     """
-    scores, best = classify_step(bank_mip, bank_probs, reads, lengths,
+    if mesh is None:
+        scores, best = classify_step(bank_mip, bank_probs, reads, lengths,
+                                     model_len, depth)
+        mine = best
+    else:
+        block, _ = classify_step(bank_mip, bank_probs, reads, lengths,
                                  model_len, depth)
-    assign = torch.nn.functional.one_hot(best.long(), n_models).to(
+        scores = pmesh.materialize(mesh, block)[:, :n_models]
+        best = np.argmax(scores, axis=1).astype(np.int32)
+        mine = torch.from_numpy(
+            best[pmesh.data_rows(mesh, len(best))]).to(reads.device)
+    assign = torch.nn.functional.one_hot(mine.long(), n_models).to(
         torch.float32)
     new_mip, new_probs = icm_train_device.train_icm_bank(
         reads.to(torch.int32), lengths, assign, n_models=n_models,
-        model_len=model_len, depth=depth, periodicity=periodicity)
+        model_len=model_len, depth=depth, periodicity=periodicity,
+        data_group=None if mesh is None else mesh.get_group("data"))
     return new_mip, new_probs, best, scores
 
 

@@ -1,13 +1,15 @@
 """Phymm read classification against a genome ICM bank, on a chosen device.
 
-Counterpart of ``glimmer_mg_tpu.parallel.phymm`` without its mesh branch.
-The reference pipeline (scripts/phymm_par.py + scripts/scoreReadsGlim.pl)
-fans out processes, each running `simple-score -N <icm>` over all reads
-forward and reverse-complement, keeping the per-read max, then merges
-score matrices from files. Here the whole bank is a stack of tables on the
-device, scored in one launch per read batch, both strands, by the
-bank-walk kernel (``csrc/bank_walk.cu``); the "merge" is the per-read
-argmax.
+Counterpart of ``glimmer_mg_tpu.parallel.phymm``. The reference pipeline
+(scripts/phymm_par.py + scripts/scoreReadsGlim.pl) fans out processes,
+each running `simple-score -N <icm>` over all reads forward and
+reverse-complement, keeping the per-read max, then merges score matrices
+from files. Here the whole bank is a stack of tables on the device, scored
+in one launch per read batch, both strands, by the bank-walk kernel
+(``csrc/bank_walk.cu``); the "merge" is the per-read argmax. Over a
+(data, model) mesh of ranks (``parallel.mesh``) each rank holds its slice
+of the bank and scores its slice of each batch, and the blocks are
+all-gathered: the reference's two fan-out modes at once.
 
 File-format parity: writes and reads the reference's rawPhymmOutput_*.txt
 (BEGIN_ICM_LIST / BEGIN_READID_LIST / BEGIN_DATA_MATRIX, one row per ICM;
@@ -27,6 +29,7 @@ from ..engine.glimmer_mg import _check_device
 from ..models import icm as icm_mod
 from ..ops import icm_cuda, icm_score
 from . import classify as pclassify
+from . import mesh as pmesh
 
 # models packed per pack_tables call: the packing's int64/f32 temporaries
 # of a whole 512-model bank come to a few GB of host memory
@@ -46,29 +49,39 @@ def path_to_genome(path: str) -> str:
 
 
 class PhymmBank:
-    """A stacked ICM bank with its bank-walk tables on ``device``."""
+    """A stacked ICM bank with its bank-walk tables on ``device``.
 
-    def __init__(self, icm_paths: list[str], device):
+    With ``mesh`` (a ``parallel.mesh`` (data, model) mesh) the bank is
+    padded to a multiple of the model axis with repeats of model 0, and
+    ``tables`` holds only this rank's slice of it along ``model``."""
+
+    def __init__(self, icm_paths: list[str], device, mesh=None):
         self.paths = list(icm_paths)
         self.device = _check_device(device)
+        self.mesh = mesh
         icms = [icm_mod.read_icm(p) for p in self.paths]
         self.model_len = icms[0].model_len
         self.depth = max(m.model_depth for m in icms)
         self.mip, self.probs = icm_score.stack_bank(icms)
+        mip, probs = self.mip, self.probs
+        rows = slice(0, len(icms))
+        if mesh is not None:
+            mip, probs = pmesh.pad_models(mesh, mip, probs)
+            rows = pmesh.model_rows(mesh, mip.shape[0])
         # pack_tables works model by model, so packing in chunks and
         # concatenating gives the same tables
-        parts = [icm_cuda.pack_tables(self.mip[i:i + PACK_CHUNK],
-                                      self.probs[i:i + PACK_CHUNK],
+        parts = [icm_cuda.pack_tables(mip[i:min(i + PACK_CHUNK, rows.stop)],
+                                      probs[i:min(i + PACK_CHUNK, rows.stop)],
                                       depth=self.depth)
-                 for i in range(0, len(icms), PACK_CHUNK)]
+                 for i in range(rows.start, rows.stop, PACK_CHUNK)]
         self.tables = tuple(
             torch.from_numpy(np.concatenate(t)).to(self.device)
             for t in zip(*parts))
         self._exact = None
 
     @classmethod
-    def from_genome_data(cls, icm_dir: str, device) -> "PhymmBank":
-        return cls(genome_icm_paths(icm_dir), device)
+    def from_genome_data(cls, icm_dir: str, device, mesh=None) -> "PhymmBank":
+        return cls(genome_icm_paths(icm_dir), device, mesh)
 
     def exact_tables(self):
         """The f32 (mip, probs) bank on the device, uploaded at first use."""
@@ -87,14 +100,35 @@ class PhymmBank:
         the exact f32 walk. ``progress`` is an optional
         utils.observe.ProgressLog advanced once per read (the reference's
         *_progress.txt, scoreReadsGlim.pl:417).
+
+        With the bank's mesh, each batch is zero-padded to a multiple of
+        the data axis and sharded over it, scored against the rank's model
+        slice (``classify_step_kernel_sharded``) and gathered; the pad
+        rows and models are sliced off. Every rank returns all the scores.
+        The mesh shards the kernel route only.
         """
+        m = len(self.paths)
+        if self.mesh is not None and not use_kernel:
+            raise ValueError("a mesh shards the bank-walk kernel route only")
         n = len(seqs)
-        out = np.zeros((n, len(self.paths)), dtype=np.float32)
+        out = np.zeros((n, m), dtype=np.float32)
         length = max((len(s) for s in seqs), default=0)
         length = max(3, length + (-length) % 3)  # the kernel needs L % 3 == 0
         for lo in range(0, n, batch):
             chunk = seqs[lo : lo + batch]
             reads, lengths = pclassify.pad_reads(chunk, length=length)
+            if self.mesh is not None:
+                reads, lengths, _n = pmesh.pad_batch(self.mesh, reads,
+                                                     lengths)
+                scores, _ = pclassify.classify_step_kernel_sharded(
+                    self.mesh, *self.tables,
+                    *pmesh.shard_reads(self.mesh, reads, lengths,
+                                       self.device),
+                    self.model_len, self.depth)
+                out[lo : lo + len(chunk)] = scores[: len(chunk), :m]
+                if progress is not None:
+                    progress.advance(len(chunk))
+                continue
             reads = torch.from_numpy(reads).to(self.device)
             lengths = torch.from_numpy(lengths).to(self.device)
             if use_kernel:
@@ -216,9 +250,14 @@ def write_results_table(path, read_ids, icm_paths, scores, taxonomy=None) -> Non
 
 
 def classify_file(sequence_file, icm_dir, out_dir=".", *, device,
-                  taxonomy=None, batch: int = 512):
+                  taxonomy=None, batch: int = 512, mesh=None):
     """Full classification step on ``device``: score + write the raw
-    matrix + the results table. Returns (icm_paths, read_ids, scores)."""
+    matrix + the results table. Returns (icm_paths, read_ids, scores).
+
+    ``mesh`` shards the bank and the reads over a (data, model) mesh of
+    ranks. Every rank returns the whole score matrix; only the output
+    process (rank 0) writes the progress file, the raw matrix and the
+    results table."""
     from ..io.fasta import read_fasta
     from ..utils.observe import ProgressLog, vlog
 
@@ -226,19 +265,23 @@ def classify_file(sequence_file, icm_dir, out_dir=".", *, device,
     read_ids = [h.split()[0] for h, _ in recs]
     if taxonomy is None:
         taxonomy = load_taxonomy(icm_dir)
-    bank = PhymmBank.from_genome_data(icm_dir, device)
+    bank = PhymmBank.from_genome_data(icm_dir, device, mesh)
     vlog(1, f"[phymm] {len(bank.paths)} ICMs x {len(recs)} reads")
     base = os.path.basename(sequence_file).replace(".", "_")
-    progress = ProgressLog(os.path.join(out_dir, f"{base}_progress.txt"),
-                           len(recs), every=50)
+    writer = pmesh.is_output_process()
+    progress = None
+    if writer:
+        progress = ProgressLog(os.path.join(out_dir, f"{base}_progress.txt"),
+                               len(recs), every=50)
     scores = bank.score_reads([s.lower() for _, s in recs], batch=batch,
                               progress=progress)
-    write_raw_phymm_output(
-        os.path.join(out_dir, raw_phymm_name(sequence_file)),
-        bank.paths, read_ids, scores,
-    )
-    write_results_table(
-        os.path.join(out_dir, results_name(sequence_file)),
-        read_ids, bank.paths, scores, taxonomy,
-    )
+    if writer:
+        write_raw_phymm_output(
+            os.path.join(out_dir, raw_phymm_name(sequence_file)),
+            bank.paths, read_ids, scores,
+        )
+        write_results_table(
+            os.path.join(out_dir, results_name(sequence_file)),
+            read_ids, bank.paths, scores, taxonomy,
+        )
     return bank.paths, read_ids, scores

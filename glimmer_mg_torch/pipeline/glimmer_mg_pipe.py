@@ -1,7 +1,7 @@
 """Full glimmer-mg metagenomics pipeline on a chosen device.
 
 Counterpart of ``glimmer_mg_tpu.pipeline.glimmer_mg_pipe`` (reference
-scripts/glimmer-mg.py) without its mesh option:
+scripts/glimmer-mg.py):
   1. Phymm classification (``parallel.phymm.classify_file``: the bank-walk
      kernel) -> rawPhymmOutput_*.txt, results.01.phymm_*.txt;
   2. top-k class parsing with the informative-genome filter ->
@@ -18,7 +18,10 @@ scripts/glimmer-mg.py) without its mesh option:
      -> <out>.cluster-<k>.predict, and the cluster-vs-classification
      arbitration -> the final <out>.predict.
 Each stage can resume from its files (--raw / --class / --clust
-equivalents).
+equivalents). Over a (data, model) mesh of ranks (``parallel.mesh``)
+stages 1 and 4 are sharded, as in the JAX package; the output process
+(rank 0) writes every file and runs stages 2, 3 and 5 alone, and the other
+ranks wait for it at barriers.
 
 ``informative_genomes``, ``running_top_k``, ``parse_phymm``, ``_per_read``,
 ``filter_predictions``, ``keep_start_features_only``, ``repredict`` and
@@ -37,7 +40,7 @@ from ..engine import glimmer_mg as mg
 from ..engine.glimmer_mg import _check_device
 from ..io.fasta import read_fasta
 from ..io.genome_data import GenomeData, parse_classes
-from ..parallel import phymm
+from ..parallel import mesh as pmesh, phymm
 from ..utils.observe import StageTimers, profiler_trace
 from . import scimm, train_features as tf
 
@@ -265,6 +268,7 @@ def run_pipeline(
     engine: str = "device",
     precompute: str = "device",
     profile_dir: str | None = None,
+    mesh=None,
 ):
     """Full pipeline on ``device``; returns the final .predict path.
 
@@ -285,6 +289,12 @@ def run_pipeline(
     ``time_<out>_<stage>.txt`` files (scripts/glimmer-mg.py:43-47);
     ``profile_dir`` wraps the run in a torch.profiler trace
     (``utils.observe.profiler_trace``).
+
+    ``mesh`` (a ``parallel.mesh`` mesh; ``device`` is then this rank's)
+    shards classification (the bank over ``model``, the reads over
+    ``data``) and the EM clustering (reads over ``data``, the cluster bank
+    over ``model``), and implies the device EM unless ``cluster_device``
+    says otherwise. Every rank returns the final path.
     """
     device = _check_device(device)
     mg._check_route(engine, precompute)
@@ -298,9 +308,9 @@ def run_pipeline(
             minbp_pct=minbp_pct, workdir=workdir, raw_done=raw_done,
             class_done=class_done, clust_done=clust_done, timers=timers,
             cluster_device=cluster_device, engine=engine,
-            precompute=precompute,
+            precompute=precompute, mesh=mesh,
         )
-    if time_files:
+    if time_files and (mesh is None or pmesh.is_output_process()):
         pre = (out_prefix if out_prefix is not None
                else os.path.splitext(os.path.basename(sequence_file))[0])
         timers.write_time_files(pre, workdir)
@@ -313,7 +323,7 @@ def _run_pipeline_timed(
     quality_file=None, fudge=None, taxonomy=None, minbp_pct=0.01,
     workdir=".", raw_done=False, class_done=False, clust_done=False,
     timers: StageTimers, cluster_device=None, engine="device",
-    precompute="device",
+    precompute="device", mesh=None,
 ):
     os.makedirs(workdir, exist_ok=True)
     if out_prefix is None:
@@ -332,47 +342,57 @@ def _run_pipeline_timed(
 
     total_bp = sum(len(s) for _, s in reads)
 
+    # the unsharded stages write files, so with a mesh only the output
+    # process runs them; the others wait at the barriers
+    writer = mesh is None or pmesh.is_output_process()
+
     # 1. classify (resume: --raw)
     if not raw_done and not class_done:
         with timers.stage("phymm") as st:
             phymm.classify_file(sequence_file, icm_dir, out_dir=workdir,
-                                device=device, taxonomy=taxonomy)
+                                device=device, taxonomy=taxonomy, mesh=mesh)
             st.items, st.bp = len(reads), total_bp
+    pmesh.barrier()  # rank 0's results table is on disk for stage 4
 
-    # 2. parse classifications (resume: --class)
-    if not class_done:
-        with timers.stage("parse_phymm"):
-            informative = informative_genomes(icm_dir)
-            classes, top_scores = parse_phymm(raw_file, informative, top_hits)
-            with open(class_file, "w") as fh:
-                for rid in classes:
-                    fh.write("%s\t%s\n" % (rid, " ".join(classes[rid])))
-    else:
-        classes = parse_classes(class_file)
-        icm_paths, rids, scores = phymm.read_raw_phymm_output(raw_file)
-        top_scores = dict(zip(rids, scores.max(axis=1)))
+    if writer:
+        # 2. parse classifications (resume: --class)
+        if not class_done:
+            with timers.stage("parse_phymm"):
+                informative = informative_genomes(icm_dir)
+                classes, top_scores = parse_phymm(raw_file, informative,
+                                                  top_hits)
+                with open(class_file, "w") as fh:
+                    for rid in classes:
+                        fh.write("%s\t%s\n" % (rid, " ".join(classes[rid])))
+        else:
+            classes = parse_classes(class_file)
+            icm_paths, rids, scores = phymm.read_raw_phymm_output(raw_file)
+            top_scores = dict(zip(rids, scores.max(axis=1)))
 
-    gd = GenomeData(icm_dir)
+        gd = GenomeData(icm_dir)
 
-    # 3. initial predictions
-    run1 = os.path.join(workdir, f"{out_prefix}.run1")
-    with timers.stage("iter0") as st:
-        init_res = list(
-            mg.run_glimmer_mg_classes(
-                reads, gd, classes, device=device, qualities=qualities,
-                allow_indels=indels, allow_subs=subs, logodds_fudge=fudge,
-                engine=engine, precompute=precompute,
+        # 3. initial predictions
+        run1 = os.path.join(workdir, f"{out_prefix}.run1")
+        with timers.stage("iter0") as st:
+            init_res = list(
+                mg.run_glimmer_mg_classes(
+                    reads, gd, classes, device=device, qualities=qualities,
+                    allow_indels=indels, allow_subs=subs,
+                    logodds_fudge=fudge, engine=engine,
+                    precompute=precompute,
+                )
             )
-        )
-        init_text = _predict_to_text(init_res)
-        st.items, st.bp = len(reads), total_bp
-    with open(f"{run1}.predict", "w") as fh:
-        fh.write(init_text)
+            init_text = _predict_to_text(init_res)
+            st.items, st.bp = len(reads), total_bp
+        with open(f"{run1}.predict", "w") as fh:
+            fh.write(init_text)
 
     if iterate == 0:
         final = os.path.join(workdir, f"{out_prefix}.predict")
-        with open(final, "w") as fh:
-            fh.write(init_text)
+        if writer:
+            with open(final, "w") as fh:
+                fh.write(init_text)
+        pmesh.barrier()
         return final
 
     # 4. clustering (resume: --clust)
@@ -384,16 +404,24 @@ def _run_pipeline_timed(
                 results_file, read_ids, taxonomy, minbp_pct=minbp_pct,
                 read_lengths=read_lengths_arr,
             )
+            use_dev = cluster_device
+            if use_dev is None and mesh is not None:
+                use_dev = True
             assign, icms, cscores = scimm.scimm_cluster(
-                seqs, assign, len(names), use_device=cluster_device,
-                device=device)
-            scimm.write_cluster_artifacts(workdir, reads, assign, icms,
-                                          cscores)
+                seqs, assign, len(names), use_device=use_dev,
+                device=device, mesh=mesh)
+            if writer:
+                scimm.write_cluster_artifacts(workdir, reads, assign, icms,
+                                              cscores)
             st.items, st.bp = len(reads), total_bp
+
+    final_path = os.path.join(workdir, f"{out_prefix}.predict")
+    if not writer:
+        pmesh.barrier()
+        return final_path
 
     # 5. per-cluster reprediction + arbitration
     init_per_read = _per_read(init_text)
-    final_path = os.path.join(workdir, f"{out_prefix}.predict")
     read_lengths = {h: len(s) for h, s in reads}
     with timers.stage("repredict") as st, open(final_path, "w") as out_fh:
         st.items, st.bp = len(reads), total_bp
@@ -439,4 +467,5 @@ def _run_pipeline_timed(
                     top_scores, read_lengths, gene_bp,
                 )
             )
+    pmesh.barrier()
     return final_path

@@ -1,22 +1,25 @@
 """Scimm/PhyScimm-equivalent clustering: classification-seeded iterative EM.
 
-Counterpart of ``glimmer_mg_tpu.pipeline.scimm`` without its mesh branch,
-on a chosen device. The reference invokes the external Scimm package (a
-missing large blob; scimm-0.3.0.tar.gz): physcimm.py initializes clusters
-from the Phymm best-hit table at a taxonomic level (dropping clusters below
-a bp fraction), then iterates: train an IMM per cluster (build-icm), score
-every read against every cluster IMM (simple-score), reassign reads to the
-argmax cluster (SURVEY P12; artifacts cluster-<k>.fa / cluster-<k>.icm /
-icm-<k>.scores.tmp in sample-run). Exact parity is impossible (Scimm is
-stochastic per the reference manual, docs/notes.tex:249-253); this module
-reconstructs the algorithm deterministically, with two routes for the EM:
+Counterpart of ``glimmer_mg_tpu.pipeline.scimm``, on a chosen device or
+over a (data, model) mesh of ranks. The reference invokes the external
+Scimm package (a missing large blob; scimm-0.3.0.tar.gz): physcimm.py
+initializes clusters from the Phymm best-hit table at a taxonomic level
+(dropping clusters below a bp fraction), then iterates: train an IMM per
+cluster (build-icm), score every read against every cluster IMM
+(simple-score), reassign reads to the argmax cluster (SURVEY P12;
+artifacts cluster-<k>.fa / cluster-<k>.icm / icm-<k>.scores.tmp in
+sample-run). Exact parity is impossible (Scimm is stochastic per the
+reference manual, docs/notes.tex:249-253); this module reconstructs the
+algorithm deterministically, with two routes for the EM:
 
   * the device EM (``_device_em``): the whole cluster bank trained at once
     by ``ops.icm_train_device.train_icm_bank``, the reads scored against it
     by the bank-walk kernel over its 16-bit tables (``icm_cuda.
     pack_tables`` + ``parallel.classify.classify_step_kernel``: the CUDA
     kernel on a CUDA device, its twin on the CPU), as the JAX package does
-    on the TPU;
+    on the TPU; with a mesh, the reads sharded over ``data`` (the
+    trainer's counts summed over the data group) and the cluster bank over
+    ``model`` (``classify_step_kernel_sharded``);
   * the host EM: the exact host trainer (``models.icm_train``) per cluster
     and the exact f32 walk (``classify_step``) on ``device``.
 
@@ -36,6 +39,7 @@ from ..engine.glimmer_mg import _check_device
 from ..models import dna, icm as icm_mod, icm_train
 from ..ops import icm_cuda, icm_score, icm_train_device
 from ..parallel import classify as pclassify
+from ..parallel import mesh as pmesh
 
 
 def init_clusters_from_results(results_file, read_ids, taxonomy=None,
@@ -113,32 +117,56 @@ def _bank_to_icms(mip, probs, model_len=12, depth=7) -> list:
 
 
 def _device_em(reads, lengths, init_assign, n_clusters, max_iters, device,
-               model_len=12, depth=7):
+               model_len=12, depth=7, mesh=None):
     """EM with per-cluster retraining on ``device``
     (``ops.icm_train_device``) and classification through the bank-walk
     kernel over the retrained bank's 16-bit tables. Trains at the top of
     every iteration and once more after the last; stops when no read
     changes cluster. Returns (assign, cluster ICMs, scores (n_reads,
-    n_clusters) of the last scoring)."""
-    reads_t = torch.from_numpy(reads).to(device)
-    lengths_t = torch.from_numpy(lengths).to(device)
+    n_clusters) of the last scoring).
+
+    With ``mesh`` the reads are zero-padded to the data axis (pad rows
+    have length 0: no counts, no scores) and sharded over it, the trainer
+    sums its counts over the data group, and the retrained bank is padded
+    to the model axis and sharded over it for the walk; the gathered
+    scores are sliced back. Every rank returns the same result."""
+    n_reads = reads.shape[0]
+    group = None
+    if mesh is None:
+        reads_t = torch.from_numpy(reads).to(device)
+        lengths_t = torch.from_numpy(lengths).to(device)
+        mine = slice(None)
+    else:
+        reads, lengths, n_reads = pmesh.pad_batch(mesh, reads, lengths)
+        reads_t, lengths_t = pmesh.shard_reads(mesh, reads, lengths, device)
+        mine = pmesh.data_rows(mesh, reads.shape[0])
+        group = mesh.get_group("data")
     assign = np.asarray(init_assign, dtype=np.int32).copy()
     scores = mip = probs = None
     for it in range(max_iters + 1):
         onehot = np.zeros((reads.shape[0], n_clusters), np.float32)
-        onehot[np.arange(len(assign)), assign] = 1.0
+        onehot[np.arange(len(assign)), assign] = 1.0  # pad rows stay zero
         mip, probs = icm_train_device.train_icm_bank(
-            reads_t, lengths_t, torch.from_numpy(onehot).to(device),
+            reads_t, lengths_t, torch.from_numpy(onehot[mine]).to(device),
             n_models=n_clusters, model_len=model_len, depth=depth,
+            data_group=group,
         )
         if it == max_iters:
             break
-        tabs = icm_cuda.pack_tables(mip.cpu().numpy(), probs.cpu().numpy(),
-                                    depth=depth)
-        scores, _ = pclassify.classify_step_kernel(
-            *(torch.from_numpy(t).to(device) for t in tabs), reads_t,
-            lengths_t, model_len, depth)
-        scores = scores.cpu().numpy()
+        if mesh is None:
+            tabs = icm_cuda.pack_tables(mip.cpu().numpy(),
+                                        probs.cpu().numpy(), depth=depth)
+            scores, _ = pclassify.classify_step_kernel(
+                *(torch.from_numpy(t).to(device) for t in tabs), reads_t,
+                lengths_t, model_len, depth)
+            scores = scores.cpu().numpy()
+        else:
+            tabs = icm_cuda.pack_tables(*pmesh.pad_models(
+                mesh, mip.cpu().numpy(), probs.cpu().numpy()), depth=depth)
+            scores, _ = pclassify.classify_step_kernel_sharded(
+                mesh, *pmesh.shard_bank(mesh, *tabs, device=device), reads_t,
+                lengths_t, model_len, depth)
+            scores = scores[:n_reads, :n_clusters]
         new_assign = np.argmax(scores, axis=1).astype(np.int32)
         if np.array_equal(new_assign, assign):
             break
@@ -155,6 +183,7 @@ def scimm_cluster(
     use_device: bool | None = None,
     *,
     device,
+    mesh=None,
     model_len: int = 12,
     depth: int = 7,
 ):
@@ -164,7 +193,8 @@ def scimm_cluster(
     ``use_device`` picks the route: the device EM (bank trainer + bank-walk
     kernel) or the bit-exact host trainer with the exact walk. ``None``
     picks the device EM on a CUDA device, as the JAX package picks it on
-    its accelerator."""
+    its accelerator. ``mesh`` shards the device EM over a (data, model)
+    mesh of ranks (the device route only, as in the JAX package)."""
     device = _check_device(device)
     if use_device is None:
         use_device = device.type == "cuda"
@@ -175,7 +205,7 @@ def scimm_cluster(
 
     if use_device:
         return _device_em(reads, lengths, assign, n_clusters, max_iters,
-                          device, model_len, depth)
+                          device, model_len, depth, mesh)
 
     reads_t = torch.from_numpy(reads).to(device)
     lengths_t = torch.from_numpy(lengths).to(device)

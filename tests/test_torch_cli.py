@@ -12,8 +12,10 @@ to "tpu", the Pallas walk in interpret mode), whose 16-bit tables the
 port's bank walk matches bitwise; the JAX package's exact f32 walk on the
 CPU is only within length/512 of it. Also: ``glimmer-mg --num_procs 2``
 parts concatenate to the single-process output, ``--device`` defaults to
-cuda and is an error without a GPU, the mesh and multi-host flags stop
-naming ROADMAP A6, and ``glimmer-mg-pipeline --profile`` writes a trace.
+cuda and is an error without a GPU, the mesh and multi-host flags without
+a world of ranks or with half a multi-host spec stop with a parser error
+that names the cause (tests/test_torch_mesh_cli.py runs them over ranks),
+and ``glimmer-mg-pipeline --profile`` writes a trace.
 """
 
 import functools
@@ -209,17 +211,26 @@ def test_device_defaults_to_cuda(src, tmp_path):
     assert _files(d) == _files(src)
 
 
-@pytest.mark.parametrize("argv", [
-    ["classify", "reads.fa", "genomeData", "--mesh", "2,1"],
-    ["classify", "reads.fa", "genomeData", "--coordinator", "localhost:1",
-     "--num_procs", "2", "--proc_id", "0"],
-    ["glimmer-mg-pipeline", "reads.fa", "genomeData", "--mesh", "1,1"],
+@pytest.mark.parametrize("argv,message", [
+    (["classify", "reads.fa", "genomeData", "--mesh", "2,1"],
+     "needs a world of ranks"),
+    (["classify", "reads.fa", "genomeData", "--coordinator", "localhost:1",
+      "--num_procs", "2"], "must be given together"),
+    (["glimmer-mg-pipeline", "reads.fa", "genomeData", "--mesh", "1,1"],
+     "needs a world of ranks"),
 ], ids=["classify-mesh", "classify-multihost", "pipeline-mesh"])
-def test_mesh_flags_stop_naming_a6(src, capsys, argv):
+def test_mesh_flags_stop_naming_a6(src, capsys, monkeypatch, argv, message):
+    """The mesh flags are the port's own now: without a world of ranks
+    (no launcher environment, no multi-host spec) or with half a
+    multi-host spec they stop with a parser error that names the cause,
+    not ROADMAP A6. tests/test_torch_mesh_cli.py runs them over ranks."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit) as exc:
         tcli.main(argv + ["--device", "cpu"])
     assert exc.value.code == 2
-    assert "ROADMAP A6" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert message in err and "A6" not in err
 
 
 def test_pipeline_profile_writes_a_trace(src, tmp_path):
