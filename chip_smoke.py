@@ -123,17 +123,34 @@ Phases (any failure raises and exits non-zero):
      overflow reads). Each rank's K2 on its last shard and K1 on its
      widest shard are held bitwise to their twins. Prints per-rank walls,
      K2 ms per shard (CUDA events) and gather and all-reduce ms (host
-     clock), and no scaling figure: one card shows none.
+     clock), and no scaling figure: one card shows none;
+ 12. the port's bench (glimmer_mg_torch.bench) in this process, its cache
+     in the smoke's temporary root: the bench DB (8 strains x 50 genes)
+     and the seeded synthetic sample-run stand-in (a 1,800-gene genome at
+     GC 0.39 with its g3-iterated files, 999 reads of 500 bp), then its
+     four rows at the command line's widths: K2 on both strands at 16
+     models x 512 reads x 510 bp and 256 x 128 (bitwise equal to its twin
+     on the row's call; each shape's bound), gene_accuracy on 300 reads of
+     500 bp through run_pipeline on the card (K1 and K2 launched;
+     sensitivity and precision printed beside the JAX package's bar of
+     0.90, only truth_genes > 100 gated), glimmer3 on the whole stand-in
+     genome (byte-identical to its run1.predict), and reads/s on 8,192
+     tiled reads x 2 timed passes (the command line's 100,000 x 5 would
+     cost minutes on the device route): native engine on its own walk,
+     on K1's scores (.predict byte-identical) and the device route with
+     the f32 carry (coordinates identical), K1 launched on both. Prints
+     each row's JSON, the stand-in's build seconds and the phase's.
 
-K1's "launches" in the kernels record is the sum over the six paths it
+K1's "launches" in the kernels record is the sum over the seven paths it
 runs on (phases 5, 7, 8 and 9, each counted from zero around its first
-pass or passes, the repredict stage of phase 6b's counted run, and phase
-11's pipeline and prediction, every rank's), K2's the sum over
-classification (phase 6), the EM (phase 6b) and phase 11's
-classification and EM; "launches_by_path" gives each.
+pass or passes, the repredict stage of phase 6b's counted run, phase
+11's pipeline and prediction, every rank's, and phase 12's accuracy and
+reads/s rows), K2's the sum over classification (phase 6), the EM (phase
+6b), phase 11's classification and EM and phase 12's bank-walk and
+accuracy rows; "launches_by_path" gives each.
 
-The script imports only glimmer_mg_torch and checks at the end that no
-module of JAX or of glimmer_mg_tpu was loaded.
+The script imports only glimmer_mg_torch and checks at the end, after
+the bench, that no module of JAX or of glimmer_mg_tpu was loaded.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over the card's 3.35 TB/s and its integer instructions over
@@ -2115,6 +2132,105 @@ def mesh_phase(root, icm_dir, reads, cmap, out5, overflow5):
     return k1, k2
 
 
+BENCH_READS, BENCH_PASSES = 8192, 2  # phase 12's reads/s row
+ACCURACY_BAR = 0.90  # tests/test_accuracy.py:57-64, the JAX package's
+
+
+def bench_phase(root):
+    """Phase 12: the port's bench (glimmer_mg_torch.bench) in this process,
+    its cache in the smoke's temporary root: the bench DB and the
+    sample-run stand-in built, then the four rows at the command line's
+    widths, the reads/s row at BENCH_READS tiled reads and BENCH_PASSES
+    timed passes. Each row raises on a false parity flag or a kernel that
+    did not launch; the phase also asserts them, K2's bound at each of the
+    row's shapes, and only truth_genes > 100 of the accuracy row. Returns
+    (K1's launches, K2's launches) over the rows."""
+    import torch
+
+    from glimmer_mg_torch import bench
+    from glimmer_mg_torch.ops import icm_score
+    from glimmer_mg_torch.pipeline.accuracy import parse_predict
+
+    t_phase = time.perf_counter()
+    sizes = bench.Sizes(reads=BENCH_READS, passes=BENCH_PASSES)
+    cache = os.path.join(root, "bench")
+    classes, db_root, sample_root, build_s = bench.prepare(cache, sizes)
+    log(f"12 bench DB ({sizes.strains} strains x {sizes.strain_genes} "
+        f"genes) and sample-run stand-in ({sizes.sample_genes} genes, "
+        f"{sizes.sample_reads} reads) built in {build_s:.1f} s")
+    calls = {}
+    for run in ("run1", "run2"):
+        with open(os.path.join(sample_root, "glimmer3", "results",
+                               f"NC_000915.{run}.predict")) as fh:
+            calls[run] = len(parse_predict(fh.read()).popitem()[1])
+    log(f"12 stand-in gene calls: run1.predict {calls['run1']}, "
+        f"run2.predict {calls['run2']} (gene_accuracy's truth) for "
+        f"{sizes.sample_genes} planted genes")
+
+    k2_row = bench.icm_bank_scoring(sample_root, DEVICE, sizes)
+    log(json.dumps(k2_row))
+    for case in (k2_row["detail"], k2_row["detail"]["bank256"]):
+        assert case["bitwise_equal_twin"] and case["k2_launches"] > 0
+        lm, pk, reads, lengths, model_len, depth = bench.build_inputs(
+            sample_root, case["models"], case["batch"], DEVICE)
+        rc = icm_score.revcomp_reads(reads, lengths)
+        levels = sum(bank_walk_levels(lm, r, lengths, model_len, depth)
+                     for r in (reads, rc))
+        walks = 2 * case["models"] * int(lengths.sum())
+        ops = levels * K2_OPS_PER_LEVEL + walks * K2_OPS_PER_WALK
+        nbytes = (lm.nbytes + pk.nbytes + (reads.numel() + lengths.numel()
+                  + reads.shape[0] * case["models"]) * 4)
+        bound_ms, bound_by = bound(nbytes, ops)
+        log(f"12 K2 (both strands) at B={case['batch']} L={bench.READ_LEN} "
+            f"M={case['models']}: step {case['step_ms']:.4f} ms (median of "
+            f"{bench.STEP_RUNS} x {bench.STEP_CALLS} calls, CUDA events); "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+            f"{ops / 1e9:.4f} G integer instructions: {walks} walks entering "
+            f"{levels} levels) [{gpu_line()}]")
+
+    t0 = time.perf_counter()
+    acc_row = bench.gene_accuracy(sample_root, DEVICE, cache, sizes)
+    log(json.dumps(acc_row))
+    acc = acc_row["detail"]
+    log(f"12 gene_accuracy in {time.perf_counter() - t0:.1f} s: "
+        f"sensitivity {acc['sensitivity']} precision {acc['precision']} "
+        f"(the JAX package's bar {ACCURACY_BAR}, a finding here, not a "
+        f"gate); truth genes {acc['truth_genes']}; K1 {acc['k1_launches']} "
+        f"K2 {acc['k2_launches']} launches")
+    assert acc["truth_genes"] > 100, acc
+    assert acc["k1_launches"] > 0 and acc["k2_launches"] > 0, acc
+
+    t0 = time.perf_counter()
+    g3_row = bench.glimmer3_whole_genome(sample_root)
+    log(json.dumps(g3_row))
+    assert g3_row["detail"]["byte_identical_run1"]
+    log(f"12 glimmer3_whole_genome in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    row = bench.glimmer_mg_reads_per_s(db_root, classes, sample_root, DEVICE,
+                                       sizes)
+    log(json.dumps(row))
+    d = row["detail"]
+    cfg, res = d["device_config"], d["device_resident"]
+    assert cfg["byte_identical"] and res["coords_identical"], (cfg, res)
+    assert cfg["k1_launches"] > 0 and res["k1_launches"] > 0, (cfg, res)
+    full = bench.Sizes()
+    log(f"12 glimmer_mg_reads_per_s on {d['reads']} tiled reads x "
+        f"{sizes.passes} timed passes (the command line's {full.reads:,} x "
+        f"{full.passes} would take "
+        f"{full.reads / res['reads_per_s']:.1f} s a pass on the device "
+        f"route at this run's rate) in {time.perf_counter() - t0:.1f} s: "
+        f"native/host "
+        f"{row['value']:.1f}, native/device {cfg['reads_per_s']:.1f}, "
+        f"device (f32 carry) {res['reads_per_s']:.1f} reads/s [{gpu_line()}]")
+    torch.cuda.synchronize()
+    log(f"phase 12 (bench): {time.perf_counter() - t_phase:.1f} s")
+    k1 = acc["k1_launches"] + cfg["k1_launches"] + res["k1_launches"]
+    k2 = (k2_row["detail"]["k2_launches"]
+          + k2_row["detail"]["bank256"]["k2_launches"] + acc["k2_launches"])
+    return k1, k2
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reads", type=int, default=8192)
@@ -2253,6 +2369,7 @@ def main(argv=None):
         k1_paths["mesh"], k2_mesh = mesh_phase(root, icm_dir, reads, cmap,
                                                out, counts["overflow_reads"])
         log(f"phase 11 (mesh): {time.perf_counter() - t0:.1f} s")
+        k1_paths["bench"], k2_bench = bench_phase(root)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "glimmer_mg_tpu")]
@@ -2260,8 +2377,9 @@ def main(argv=None):
     record["launches"] = sum(k1_paths.values())
     record["launches_by_path"] = k1_paths
     k2_record["launches_by_path"] = {"classify": k2_launches,
-                                     "scimm": k2_scimm, "mesh": k2_mesh}
-    k2_record["launches"] = k2_launches + k2_scimm + k2_mesh
+                                     "scimm": k2_scimm, "mesh": k2_mesh,
+                                     "bench": k2_bench}
+    k2_record["launches"] = sum(k2_record["launches_by_path"].values())
     k2_int8_record["launches"] = k2_int8_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -27,6 +27,11 @@ is the port's own:
   parallel/launch.py    a world of ranks started on this machine
   pipeline/glimmer_mg_pipe.py  run_pipeline, stages 1-3 (classify ->
                         parse classes -> predict)
+  pipeline/accuracy.py  gene-level accuracy of the whole pipeline
+  bench_db.py           the bench's synthetic DB, reads and sample-run
+                        stand-in
+  bench.py              python -m glimmer_mg_torch.bench, the JAX
+                        bench's four metrics through the port's kernels
 
 It imports ``torch`` and never ``jax``. Every entry point takes an
 explicit ``device``.

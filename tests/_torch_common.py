@@ -341,3 +341,41 @@ def bad_bank_walk_call(t, case):
     else:
         kw["model_len"] = 17
     return t, kw
+
+
+def small_sample_run(root, seed=11):
+    """A small stand-in for the sample-run (``bench_db.build_sample_run``):
+    a 60-gene genome and 30 reads from two 10-gene strains. Returns
+    (root, strains)."""
+    from glimmer_mg_torch import bench_db
+
+    rng = np.random.default_rng(seed + 100)
+    strains = {"sa|chr": bench_db.make_genome(rng, 0.4, n_genes=10),
+               "sb|chr": bench_db.make_genome(rng, 0.6, n_genes=10)}
+    return (bench_db.build_sample_run(root, strains, seed=seed, n_genes=60,
+                                      n_reads=30), strains)
+
+
+def redirect_jax_sample_run(monkeypatch, root):
+    """Point the JAX package's fixed sample-run location (the one that
+    tests/oracle.py's reference root holds) at ``root``, for one test: the
+    JAX functions read it with ``io.fasta.read_fasta`` and
+    ``Path.read_text``."""
+    import pathlib
+
+    from glimmer_mg_tpu.io import fasta
+
+    from tests import oracle
+
+    fixed = str(oracle.REF_SRC.parent / "sample-run")
+
+    def moved(path):
+        p = str(path)
+        return str(root) + p[len(fixed):] if p.startswith(fixed) else p
+
+    read_fasta, read_text = fasta.read_fasta, pathlib.Path.read_text
+    monkeypatch.setattr(fasta, "read_fasta",
+                        lambda path, *a, **k: read_fasta(moved(path), *a, **k))
+    monkeypatch.setattr(pathlib.Path, "read_text",
+                        lambda self, *a, **k: read_text(
+                            pathlib.Path(moved(self)), *a, **k))
