@@ -31,10 +31,15 @@ Phases (any failure raises and exits non-zero):
      overflow reads took the host route (at most 5%), the first reads'
      .predict text byte-identical to the exact host engine (the port's
      own copy of the pure numpy/Python per-read engine, engine/mg_host.py,
-     run with engine="host"), finite scores. Prints warm reads/s
-     from a second pass, a third pass's wall time split by layer (chunk
-     overlap off, as in every split), a pass with the f32 score carry,
-     and a per-stage breakdown of one chunk;
+     run with engine="host"), finite scores, K3 (the event DP and
+     traceback kernel) launched. Prints warm reads/s from a second pass,
+     a third pass's wall time split by layer (chunk overlap off, as in
+     every split), a pass with the f32 score carry, and a per-stage
+     breakdown of one chunk, K3 and its twin as separate stages; then K3
+     against its twin on the chunk's rows with the f64 and the f32 carry:
+     bitwise equal on every output, no host sync (the call runs under
+     torch.cuda.set_sync_debug_mode("error")), device time (CUDA events)
+     beside the twin's and the bound;
   6. the pipeline path: the same reads as a FASTA file through the port's
      run_pipeline(device="cuda", iterate=0): classification against the
      512-ICM bank (K2), class parsing, prediction (K1). Checks: both
@@ -75,10 +80,11 @@ Phases (any failure raises and exits non-zero):
      qualities=...). Checks: K1 launched, only overflow reads took the
      host route (at most 5%), the first reads' .predict text, substitution
      records included, byte-identical to the host engine, at least 1% of
-     the genes carry a substitution record. Prints warm reads/s, a warm
-     pass's wall split by layer and a per-stage breakdown of one chunk;
-     K1 against its twin, bitwise, on the inputs of the path's K1 call
-     with the most bank rows (B, L and G printed);
+     the genes carry a substitution record, K3 launched. Prints warm
+     reads/s, a warm pass's wall split by layer and a per-stage breakdown
+     of one chunk with phase 5's K3 checks (qualities included); K1
+     against its twin, bitwise, on the inputs of the path's K1 call with
+     the most bank rows (B, L and G printed);
   8. indel mode: 454-like reads (homopolymer indels at 0.3% per base, no
      quality file) through run_glimmer_mg_classes(device="cuda",
      allow_indels=True): K1 on the card, then the native C++ engine on the
@@ -147,13 +153,18 @@ pass or passes, the repredict stage of phase 6b's counted run, phase
 11's pipeline and prediction, every rank's, and phase 12's accuracy and
 reads/s rows), K2's the sum over classification (phase 6), the EM (phase
 6b), phase 11's classification and EM and phase 12's bank-walk and
-accuracy rows; "launches_by_path" gives each.
+accuracy rows, K3's the sum over the paths that run the device route
+(phases 5, 6, 6b's repredict, 7, 11's prediction and 12's accuracy and
+device_resident rows); "launches_by_path" gives each. K3's "ms",
+"plain_ms" and bound are those of phase 5's chunk (error-free, f64);
+"cases" gives each mode and carry.
 
 The script imports only glimmer_mg_torch and checks at the end, after
 the bench, that no module of JAX or of glimmer_mg_tpu was loaded.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
-written once) over the card's 3.35 TB/s and its integer instructions over
+written once) over the card's 3.35 TB/s and, for K1 and K2, its integer
+instructions over
 the card's INT32 rate (64 lanes an SM x SMs x the maximum SM clock that
 nvidia-smi reports). The instructions are the walk's, counted in the SASS
 of build/libglimmer_mg_torch.so (cuobjdump -sass, sm_90a): a count per
@@ -752,17 +763,83 @@ def f32_pass(gd, reads, cmap, want):
         f"the f64 run: {differ}")
 
 
+def k3_bytes(ev, tables, B):
+    """Bytes K3 must move for one call: each input read once (the event
+    rows, ne, groups, the bank's adjacency tables), each output written
+    once (score and bp rows, best, wovf, the gene records, cnt)."""
+    sb = ev["score"].element_size()
+    E = ev["pos"].shape[1]
+    row = 4 * 4 + sb + 1 + (8 if "err_pos" in ev else 0)
+    inputs = B * E * row + 2 * 4 * B + sum(t.nbytes for t in tables.values())
+    outputs = (B * E * (sb + 4) + B * (6 * 4 + 1 + 4)
+               + B * 48 * (6 * 4 + 1 + sb))
+    return inputs + outputs
+
+
+def k3_check(title, ev, dev, grp, consts, ne):
+    """K3 against its twin on one chunk's rows: bitwise on every output,
+    no host sync (the call runs under sync debug mode "error"), its device
+    time (CUDA events) and the twin's; returns K3's case record."""
+    import torch
+
+    from glimmer_mg_torch.ops import event_dp, event_dp_cuda
+
+    tables = {k: dev[k] for k in ("adj_or", "adj_dist", "adj_dist_len")}
+    args = (ev, tables, grp, consts, ne)
+    event_dp_cuda.event_dp_traceback(*args)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = event_dp_cuda.event_dp_traceback(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    adj = event_dp._prefetch_adj(dev, grp)
+    want = event_dp.event_dp_traceback(ev, adj, consts, ne)
+    syncs = event_dp.last_syncs
+    for a, b in zip(want, got):
+        if a.dtype.is_floating_point:
+            iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+            a, b = a.view(iv), b.view(iv)
+        assert torch.equal(a, b), f"K3 differs from its twin ({title})"
+    diff = (want[0] - got[0]).abs()
+    diff = diff[torch.isfinite(diff)]
+    err = float(diff.max()) if diff.numel() else 0.0
+    ms = kernel_ms(lambda: event_dp_cuda.event_dp_traceback(*args))
+    plain = cuda_ms(lambda: event_dp.event_dp_traceback(ev, adj, consts, ne),
+                    reps=3)
+    nbytes = k3_bytes(ev, tables, ne.shape[0])
+    bound_ms, by = bound(nbytes, 0)
+    steps = int(ne.max())
+    log(f"K3 {title}: B {ne.shape[0]} x E {ev['pos'].shape[1]}, "
+        f"{steps} steps; bitwise equal to its twin, K3 host syncs 0 (sync "
+        f"debug mode error), the twin's {syncs}; K3 {ms:.4f} ms (device, "
+        f"CUDA events), twin {plain:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.3f} MB over 3.35 TB/s) [{gpu_line()}]")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": by, "max_abs_err": err, "steps": steps}
+
+
+# K3's records: its launches on each path (phases fill "paths") and its
+# time on the smoke's chunk in each mode and carry ("cases").
+K3 = {"paths": {}, "cases": {}}
+
+
 def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
                     subs=False):
     """Host-clock stage times (synchronised) of one 2,048-read chunk, in
-    substitution mode with ``subs`` (``quals``: qualities by header)."""
+    substitution mode with ``subs`` (``quals``: qualities by header), K3
+    and its twin (event DP, then traceback) as separate stages; then K3
+    against its twin on the chunk's rows (``k3_check``) with the f64 and
+    the f32 carry, recorded in K3["cases"]."""
     import numpy as np
     import torch
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
     from glimmer_mg_torch.host import dna
     from glimmer_mg_torch.ops import device_predict as dpk
-    from glimmer_mg_torch.ops import event_dp, frontend, icm_cuda
+    from glimmer_mg_torch.ops import event_dp, event_dp_cuda, frontend
+    from glimmer_mg_torch.ops import icm_cuda
 
     chunk = reads[:2048]
     cache, ids, models, group = {}, {}, [], []
@@ -800,6 +877,7 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
                   start_threshold=bank.start_threshold,
                   ws=bank.ribosome_window, W=bank.pwm_w, fdt=torch.float64,
                   subs=subs)
+    tables = {k: dev[k] for k in ("adj_or", "adj_dist", "adj_dist_len")}
     times = {}
 
     def stage(name, fn):
@@ -814,20 +892,35 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
         dev["gene_mip"], dev["gene_probs"], dev["indep_mip"],
         dev["indep_probs"], reads_t, lens, grp, model_len=bank.model_len,
         depth=bank.depth))
-    ev, n_ev = stage("frontend", lambda: frontend.frontend(
-        reads_t, lens, grp, g6, i6, dev, 768, consts, dpk.MAX_EVENTS,
-        quals=q_t))
-    ne = torch.clamp(n_ev, max=dpk.MAX_EVENTS)
+    rows = {}
+    for fdt in (torch.float64, torch.float32):
+        c = dict(consts, fdt=fdt)
+        ev, n_ev = stage("frontend" + ("" if fdt == torch.float64
+                                       else "_f32"),
+                         lambda: frontend.frontend(
+                             reads_t, lens, grp, g6, i6, dev, 768, c,
+                             dpk.MAX_EVENTS, quals=q_t))
+        rows[fdt] = (ev, c, torch.clamp(n_ev, max=dpk.MAX_EVENTS))
+    ev, _c, ne = rows[torch.float64]
+    stage("event_dp_traceback (K3)", lambda: event_dp_cuda.event_dp_traceback(
+        ev, tables, grp, consts, ne))
     adj = event_dp._prefetch_adj(dev, grp)
-    sc, bp, best, _w = stage("event_dp", lambda: event_dp.event_dp_batched(
-        ev, adj, consts, ne))
+    sc, bp, best, _w = stage("event_dp (twin)", lambda:
+                             event_dp.event_dp_batched(ev, adj, consts, ne))
     syncs = event_dp.last_syncs
-    stage("traceback", lambda: event_dp.traceback_batched(ev, sc, bp, best,
-                                                          ne))
+    stage("traceback (twin)", lambda: event_dp.traceback_batched(
+        ev, sc, bp, best, ne))
     log(f"{title}, one {len(chunk)}-read chunk "
         "(ms, host clock, synchronised): "
         + json.dumps({k: round(v, 3) for k, v in times.items()})
-        + f"; DP steps {int(ne.max())}, host syncs {syncs}")
+        + f"; DP steps {int(ne.max())}, K3 host syncs 0, the twin's event "
+        f"DP {syncs}")
+    mode = "subs_quals" if subs and quals else ("subs" if subs
+                                                else "error_free")
+    for fdt, (ev, c, ne) in rows.items():
+        carry = "f64" if fdt == torch.float64 else "f32"
+        K3["cases"][f"{mode}_{carry}"] = k3_check(
+            f"{mode} {carry}", ev, dev, grp, c, ne)
 
 
 def predict_blocks(text):
@@ -850,7 +943,7 @@ def pipeline_phase(root, icm_dir, gd, bank, reads, cmap, check):
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
     from glimmer_mg_torch.host import write_fasta
-    from glimmer_mg_torch.ops import icm_cuda
+    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
     from glimmer_mg_torch.parallel import phymm
     from glimmer_mg_torch.pipeline import glimmer_mg_pipe as pipe
 
@@ -860,19 +953,23 @@ def pipeline_phase(root, icm_dir, gd, bank, reads, cmap, check):
     timers = pipe.StageTimers()
     tmg.reset_counters()
     icm_cuda.reset_launches()
+    event_dp_cuda.reset_launches()
     t0 = time.perf_counter()
     final = pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=0,
                               workdir=work, timers=timers)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     k1, k2 = icm_cuda.launches, icm_cuda.bank_walk_launches
+    K3["paths"]["pipeline"] = k3 = event_dp_cuda.launches
     counts = dict(tmg.counters)
     log(f"pipeline path (cold): {len(reads)} reads in {cold:.2f} s; "
-        f"K2 launches {k2}, K1 launches {k1}; routes {counts}")
+        f"K2 launches {k2}, K1 launches {k1}, K3 launches {k3}; routes "
+        f"{counts}")
     log_parts("pipeline (iterate=0, cold)", cold,
               {st.name: st.wall_s for st in timers.stages})
     assert k2 > 0, "the pipeline did not launch K2"
     assert k1 > 0, "the pipeline did not launch K1"
+    assert k3 > 0, "the pipeline did not launch K3"
 
     paths, rids, raw = phymm.read_raw_phymm_output(
         os.path.join(work, phymm.raw_phymm_name(fa)))
@@ -984,17 +1081,18 @@ def em_probes():
     and its histograms' device time, each EM bank walk's (K2) time and the
     reads whose best cluster it changed, the first training's arguments and
     its last (level-7) histogram's, the last EM walk's arguments, the K2
-    launches inside scimm_cluster and the K1 launches inside repredict
-    (differences of the wrappers' own counts; ``in_repredict`` is true
-    while repredict runs), and the EM's seeds. Each timed call is
+    launches inside scimm_cluster and the K1 and K3 launches inside
+    repredict (differences of the wrappers' own counts; ``in_repredict``
+    is true while repredict runs), and the EM's seeds. Each timed call is
     synchronised before and after."""
     import torch
 
-    from glimmer_mg_torch.ops import icm_cuda, icm_train_device as itd
+    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
+    from glimmer_mg_torch.ops import icm_train_device as itd
     from glimmer_mg_torch.pipeline import glimmer_mg_pipe as pipe, scimm
 
     rec = {"train_ms": [], "hist_ms": [], "k2_ms": [], "moved": [],
-           "scimm": 0, "repredict": 0, "in_em": False,
+           "scimm": 0, "repredict": 0, "repredict_k3": 0, "in_em": False,
            "in_repredict": False}
     real = {(itd, "train_icm_bank"): itd.train_icm_bank,
             (itd, "level_histogram"): itd.level_histogram,
@@ -1049,13 +1147,14 @@ def em_probes():
             rec["scimm"] += icm_cuda.bank_walk_launches - n0
 
     def repredict(*a, **k):
-        n0 = icm_cuda.launches
+        n0, n3 = icm_cuda.launches, event_dp_cuda.launches
         rec["in_repredict"] = True
         try:
             return real[pipe, "repredict"](*a, **k)
         finally:
             rec["in_repredict"] = False
             rec["repredict"] += icm_cuda.launches - n0
+            rec["repredict_k3"] += event_dp_cuda.launches - n3
 
     probes = {(itd, "train_icm_bank"): train,
               (itd, "level_histogram"): hist,
@@ -1153,8 +1252,10 @@ def iterate_phase(root, icm_dir, gd, reads, check):
     log(f"iterate path (cold): {len(reads)} reads in {cold:.2f} s; "
         f"init_clusters_from_results made {n_clusters} clusters (family "
         f"rank); K2 launches {k2} ({rec['scimm']} in the EM), K1 launches "
-        f"{k1} ({rec['repredict']} in repredict); routes "
-        f"{dict(tmg.counters)}")
+        f"{k1} ({rec['repredict']} in repredict), K3 launches in repredict "
+        f"{rec['repredict_k3']}; routes {dict(tmg.counters)}")
+    K3["paths"]["repredict"] = rec["repredict_k3"]
+    assert rec["repredict_k3"] > 0, "repredict did not launch K3"
     log_parts("iterate pipeline (cold)", cold,
               {st.name: st.wall_s for st in timers.stages})
     log_em("device EM (cold run)", rec)
@@ -1407,10 +1508,11 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
     import torch
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
-    from glimmer_mg_torch.ops import icm_cuda
+    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
 
     tmg.reset_counters()
     icm_cuda.reset_launches()
+    event_dp_cuda.reset_launches()
     with widest_six_frame() as widest:
         t0 = time.perf_counter()
         out = list(tmg.run_glimmer_mg_classes(reads, gd, cmap, device=DEVICE,
@@ -1418,9 +1520,11 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
     launches, counts = icm_cuda.launches, dict(tmg.counters)
+    K3["paths"][name.split()[0]] = event_dp_cuda.launches
     genes = [g for _h, gs in out for g in gs]
     log(f"{name} pass 1: {len(out)} reads in {cold:.2f} s; K1 launches "
-        f"{launches}; routes {counts}; {len(genes)} genes, "
+        f"{launches}, K3 launches {event_dp_cuda.launches}; routes "
+        f"{counts}; {len(genes)} genes, "
         f"{sum(1 for g in genes if g.errors)} with error records")
     assert launches > 0, f"the {name} path did not launch K1"
     assert len(out) == len(reads)
@@ -1464,6 +1568,7 @@ def subs_phase(gd, genomes, n_reads, check, seed):
     launches, counts, genes, out, host = error_mode_phase(
         "subs mode", gd, reads, cmap, check, allow_subs=True,
         qualities=quals)
+    assert K3["paths"]["subs"] > 0, "the subs mode path did not launch K3"
     stage_breakdown(gd, reads, cmap, "subs mode stage breakdown",
                     quals=quals, subs=True)
     assert counts["device_reads"] + counts["host_reads"] == len(reads)
@@ -1790,7 +1895,8 @@ def mesh_rank(work):
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
     from glimmer_mg_torch.host import GenomeData, read_fasta
-    from glimmer_mg_torch.ops import device_predict as dpk, icm_cuda
+    from glimmer_mg_torch.ops import device_predict as dpk
+    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
     from glimmer_mg_torch.parallel import mesh as pmesh, phymm
     from glimmer_mg_torch.parallel.predict import predict_batch_sharded
     from glimmer_mg_torch.pipeline import scimm
@@ -1877,6 +1983,7 @@ def mesh_rank(work):
             bank = tmg._bank_for(rows, models, batch[0].shape[1], dev, cache)
             batches.append((jobs, bank, [t.cpu().numpy() for t in batch]))
         icm_cuda.reset_launches()
+        event_dp_cuda.reset_launches()
         sharded = []
         with widest_six_frame() as widest:
             pmesh.barrier()
@@ -1886,7 +1993,8 @@ def mesh_rank(work):
                                                      *batch))
             torch.cuda.synchronize()
             res["wall_s"][tag] = time.perf_counter() - t0
-        res["launches"][tag] = {"K1": icm_cuda.launches}
+        res["launches"][tag] = {"K1": icm_cuda.launches,
+                                "K3": event_dp_cuda.launches}
         same, shape = k1_check(widest)
         res["k1"] = {"bitwise": same, "shape": shape}
         if pmesh.is_output_process():
@@ -2126,7 +2234,11 @@ def mesh_phase(root, icm_dir, reads, cmap, out5, overflow5):
     assert pred["served"] == len(reads) - overflow5
     assert all(x["k1"]["bitwise"] for x in ranks)
     assert all(x["launches"][tag]["K1"] > 0 for x in ranks)
+    assert all(x["launches"][tag]["K3"] > 0 for x in ranks)
     k1 += sum(x["launches"][tag]["K1"] for x in ranks)
+    K3["paths"]["mesh"] = sum(x["launches"][tag]["K3"] for x in ranks)
+    log(f"11b K3 launches per rank "
+        f"{[x['launches'][tag]['K3'] for x in ranks]}")
     log(f"phase 11b: {MESH_RANKS} ranks on gloo, "
         f"{time.perf_counter() - t_b:.1f} s")
     return k1, k2
@@ -2214,6 +2326,8 @@ def bench_phase(root):
     cfg, res = d["device_config"], d["device_resident"]
     assert cfg["byte_identical"] and res["coords_identical"], (cfg, res)
     assert cfg["k1_launches"] > 0 and res["k1_launches"] > 0, (cfg, res)
+    assert res["k3_launches"] > 0 and acc["k3_launches"] > 0, (res, acc)
+    K3["paths"]["bench"] = acc["k3_launches"] + res["k3_launches"]
     full = bench.Sizes()
     log(f"12 glimmer_mg_reads_per_s on {d['reads']} tiled reads x "
         f"{sizes.passes} timed passes (the command line's {full.reads:,} x "
@@ -2255,7 +2369,7 @@ def main(argv=None):
 
     from glimmer_mg_torch import _build
     from glimmer_mg_torch.engine import glimmer_mg as tmg
-    from glimmer_mg_torch.ops import icm_cuda
+    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
     from glimmer_mg_torch.parallel import phymm
 
     log(gpu_line())
@@ -2266,6 +2380,8 @@ def main(argv=None):
     _build.lib()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds})")
+    for line in ptxas_lines("event_dp", "event_dp_kernel"):
+        log(f"K3 ptxas: {line}")
 
     with tempfile.TemporaryDirectory(prefix="gmt_smoke_") as root:
         t0 = time.perf_counter()
@@ -2289,16 +2405,21 @@ def main(argv=None):
         # pass 1 (cold: model construction, bank build) with the counts
         tmg.reset_counters()
         icm_cuda.reset_launches()
+        event_dp_cuda.reset_launches()
         t0 = time.perf_counter()
         out = list(tmg.run_glimmer_mg_classes(reads, gd, cmap,
                                               device=DEVICE))
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         launches = icm_cuda.launches
+        K3["paths"]["prediction"] = event_dp_cuda.launches
         counts = dict(tmg.counters)
         log(f"prediction path pass 1: {len(out)} reads in {cold:.2f} s; "
-            f"K1 launches {launches}; routes {counts}")
+            f"K1 launches {launches}, K3 launches "
+            f"{event_dp_cuda.launches}; routes {counts}")
         assert launches > 0, "the prediction path did not launch K1"
+        assert event_dp_cuda.launches > 0, \
+            "the prediction path did not launch K3"
         assert len(out) == len(reads)
         assert counts["device_reads"] + counts["host_reads"] == len(reads)
         assert counts["host_reads"] == counts["overflow_reads"], counts
@@ -2381,12 +2502,25 @@ def main(argv=None):
                                      "bench": k2_bench}
     k2_record["launches"] = sum(k2_record["launches_by_path"].values())
     k2_int8_record["launches"] = k2_int8_launches
+    k3_paths = {k: v for k, v in K3["paths"].items() if v}
+    cases = K3["cases"]
+    k3_record = {
+        "name": "event_dp_traceback", "route": "cuda",
+        "source": "glimmer_mg_torch/csrc/event_dp.cu",
+        "replaces": "glimmer_mg_tpu/ops/device_predict.py:2210",
+        "launches": sum(k3_paths.values()), "launches_by_path": k3_paths,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        **{k: cases["error_free_f64"][k] for k in ("ms", "plain_ms",
+                                                   "bound_ms", "bound_by")},
+        "library_ms": None, "cases": cases}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "kernel_ms", "kernel_ms_cold", "checked_ms", "launches_by_path")
+            "kernel_ms", "kernel_ms_cold", "checked_ms", "launches_by_path",
+            "cases")
     print(gpu_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in
-                                  (record, k2_record, k2_int8_record)]}))
+                                  (record, k2_record, k2_int8_record,
+                                   k3_record)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,8 @@ is the port's own:
                         and csrc/bank_walk.cu; bank-walk table packing
   ops/device_predict.py bank tables, batch entry point, host finish
   ops/frontend.py       ORF/start-candidate frontend and event assembly
-  ops/event_dp.py       windowed event-graph DP and traceback
+  ops/event_dp.py       windowed event-graph DP and traceback (K3's twin)
+  ops/event_dp_cuda.py  wrapper of the CUDA kernel csrc/event_dp.cu (K3)
   engine/glimmer_mg.py  run_glimmer_mg / run_glimmer_mg_classes
   parallel/classify.py  classification steps (both strands, per-read max),
                         on one rank or over a mesh

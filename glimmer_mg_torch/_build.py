@@ -108,5 +108,7 @@ def lib() -> ctypes.CDLL:
             cdll.gmt_bank_walk.argtypes = ([p] * 7 + [i] * 9
                                            + [ctypes.c_float, p])
             cdll.gmt_bank_walk.restype = i
+            cdll.gmt_event_dp.argtypes = [p] * 26 + [i] * 7 + [p]
+            cdll.gmt_event_dp.restype = i
             _LIB = cdll
         return _LIB

@@ -5,9 +5,10 @@ error-free and the substitution mode, with or without per-base qualities
 (no indel branching, linear reads, truncated ORFs allowed, default start
 codons). The six-frame ICM
 log-probs come from ``ops.icm_cuda`` and stay on the device; the ORF and
-start-candidate frontend, event assembly (here), the windowed event-graph
-DP and the traceback (``ops.event_dp``) run as tensor code on the same
-device, and only gene records come back to the host.
+start-candidate frontend and event assembly (here) run as tensor code on
+the same device, the windowed event-graph DP and the traceback as one
+launch of K3 (``ops.event_dp_cuda``; on CPU tensors its plain version,
+``ops.event_dp``), and only gene records come back to the host.
 
 Numerics follow the JAX package: event scores are carried in f64 by
 default (``f64=False`` selects the f32 carry, every f64 table and sum
@@ -431,7 +432,7 @@ def predict_batch_device(bank: DeviceBank, dev_bank: dict, reads, lengths,
     is a gene's substitution record (-1 for none), n_flag the event count,
     or MAX_EVENTS + 1 for reads the DP's row window could not serve.
     """
-    from . import event_dp, frontend
+    from . import event_dp_cuda, frontend
 
     b, L0 = reads.shape
     Lp = L0 + (-L0) % 3
@@ -459,9 +460,8 @@ def predict_batch_device(bank: DeviceBank, dev_bank: dict, reads, lengths,
                                      dev_bank, Lp, consts, max_events,
                                      quals=q)
     ne = torch.clamp(n_events, max=max_events)
-    adj = event_dp._prefetch_adj(dev_bank, groups)
-    score, bp, best, wovf = event_dp.event_dp_batched(ev, adj, consts, ne)
-    genes = event_dp.traceback_batched(ev, score, bp, best, ne)
+    _score, _bp, _best, wovf, *genes = event_dp_cuda.event_dp_traceback(
+        ev, dev_bank, groups, consts, ne)
     n_flag = torch.where(wovf, max_events + 1, n_events).to(torch.int32)
     return [x.cpu().numpy() for x in (*genes, n_flag)]
 

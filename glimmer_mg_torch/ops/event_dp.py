@@ -15,7 +15,9 @@ tensors (score, bp, disq) are updated in place.
 
 Host synchronisations per batch: one to read the loop bound max(ne), and
 one per iteration of each disqualify/requalify chain walk (two walks per
-DP step, each usually 0-2 iterations).
+DP step, each usually 0-2 iterations). ``event_dp_traceback`` is the plain
+version of K3 (``csrc/event_dp.cu``, wrapped by ``ops.event_dp_cuda``),
+which runs both stages in one launch without a host sync.
 """
 
 from __future__ import annotations
@@ -398,3 +400,12 @@ def traceback_batched(ev, score, bp, best, ne):
         p = torch.where(active, bpp, p)
     return (g_id, g_stop, g_len, g_sign, g_trunc, g_score, g_epos, g_etyp,
             cnt)
+
+
+def event_dp_traceback(ev, adj, consts, ne):
+    """``event_dp_batched`` then ``traceback_batched``: (score, bp, best,
+    wovf, g_id, g_stop, g_len, g_sign, g_trunc, g_score, g_epos, g_etyp,
+    cnt). The plain version of K3; ``last_syncs`` counts its host syncs."""
+    score, bp, best, wovf = event_dp_batched(ev, adj, consts, ne)
+    return (score, bp, best, wovf,
+            *traceback_batched(ev, score, bp, best, ne))
