@@ -32,14 +32,18 @@ Phases (any failure raises and exits non-zero):
      .predict text byte-identical to the exact host engine (the port's
      own copy of the pure numpy/Python per-read engine, engine/mg_host.py,
      run with engine="host"), finite scores, K3 (the event DP and
-     traceback kernel) launched. Prints warm reads/s from a second pass,
-     a third pass's wall time split by layer (chunk overlap off, as in
-     every split), a pass with the f32 score carry, and a per-stage
-     breakdown of one chunk, K3 and its twin as separate stages; then K3
-     against its twin on the chunk's rows with the f64 and the f32 carry:
-     bitwise equal on every output, no host sync (the call runs under
+     traceback kernel) and KF (the error-free frontend kernel) launched.
+     Prints warm reads/s from a second pass, a third pass's wall time
+     split by layer (chunk overlap off, as in every split), a pass with
+     the f32 score carry, and a per-stage breakdown of one chunk, KF and
+     its twin, K3 and its twin as separate stages; then K3 against its
+     twin on the chunk's rows with the f64 and the f32 carry: bitwise
+     equal on every output, no host sync (the call runs under
      torch.cuda.set_sync_debug_mode("error")), device time (CUDA events)
-     beside the twin's and the bound;
+     beside the twin's and the bound; and KF against its twin on the
+     chunk with each carry: every output bitwise equal (padding rows and
+     n_events included), no host sync, K3 on KF's rows giving the genes
+     of K3 on the twin's, device time beside the twin's and the bound;
   6. the pipeline path: the same reads as a FASTA file through the port's
      run_pipeline(device="cuda", iterate=0): classification against the
      512-ICM bank (K2), class parsing, prediction (K1). Checks: both
@@ -155,7 +159,9 @@ reads/s rows), K2's the sum over classification (phase 6), the EM (phase
 6b), phase 11's classification and EM and phase 12's bank-walk and
 accuracy rows, K3's the sum over the paths that run the device route
 (phases 5, 6, 6b's repredict, 7, 11's prediction and 12's accuracy and
-device_resident rows); "launches_by_path" gives each. K3's "ms",
+device_resident rows), KF's the sum over those that run it error-free
+(all but 7: the error modes of phases 7 and 8 launch it 0 times, which
+they assert); "launches_by_path" gives each. K3's and KF's "ms",
 "plain_ms" and bound are those of phase 5's chunk (error-free, f64);
 "cases" gives each mode and carry.
 
@@ -823,15 +829,90 @@ def k3_check(title, ev, dev, grp, consts, ne):
 # K3's records: its launches on each path (phases fill "paths") and its
 # time on the smoke's chunk in each mode and carry ("cases").
 K3 = {"paths": {}, "cases": {}}
+# KF's records, the same for the error-free frontend kernel.
+KF = {"paths": {}, "cases": {}}
+
+
+def kf_bytes(args, ev):
+    """Bytes KF must move for one call: each input read once (the reads,
+    lengths, groups, the bank tables it reads, and of K1's two six-frame
+    tables only the positions below each read's length, the only ones KF
+    reads), each output written once (the event rows and n_events)."""
+    seq, n, gi, g6, i6, bank = args[:6]
+    Lp = args[6]
+    tables = ("fwd_start rev_start fwd_stop rev_stop which_fwd which_rev "
+              "prior start_lo len_score ignore_score_len pwm_cols pwm_n "
+              "pwm_user pwm_is_user gc_lp").split()
+    live = int(n.clamp(0, Lp).sum())
+    inputs = sum(t.nbytes for t in (seq, n, gi))
+    inputs += 2 * 6 * g6.element_size() * live
+    inputs += sum(bank[k].nbytes for k in tables)
+    return inputs + sum(t.nbytes for t in ev.values()) + n.nbytes
+
+
+def kf_check(title, args, want, dev, grp):
+    """KF against its twin on one chunk (``args`` the frontend's
+    arguments, ``want`` the twin's (ev, n_events) on them): bitwise on
+    every output, no host sync (sync debug mode "error"), K3 on KF's rows
+    giving the genes of K3 on the twin's; KF's device time (CUDA events),
+    the twin's and the bound. Returns KF's case record."""
+    import torch
+
+    from glimmer_mg_torch.ops import event_dp_cuda, frontend, frontend_cuda
+    from glimmer_mg_torch.ops import device_predict as dpk
+
+    frontend_cuda.frontend(*args)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = frontend_cuda.frontend(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    (wev, wn), (gev, gn) = want, got
+    assert torch.equal(wn, gn), f"KF n_events differ ({title})"
+    for k, a in wev.items():
+        b = gev[k]
+        if a.dtype.is_floating_point:
+            iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+            a, b = a.view(iv), b.view(iv)
+        assert torch.equal(a, b), f"KF {k} differs from its twin ({title})"
+    consts = args[7]
+    tables = {k: dev[k] for k in ("adj_or", "adj_dist", "adj_dist_len")}
+    genes = []
+    for ev, n in (want, got):
+        ne = torch.clamp(n, max=dpk.MAX_EVENTS)
+        genes.append(event_dp_cuda.event_dp_traceback(ev, tables, grp,
+                                                      consts, ne)[4:])
+    for a, b in zip(*genes):
+        assert torch.equal(a, b), f"K3's genes on KF's rows differ ({title})"
+    diff = (wev["score"] - gev["score"]).abs()
+    diff = diff[torch.isfinite(diff)]
+    err = float(diff.max()) if diff.numel() else 0.0
+    ms = kernel_ms(lambda: frontend_cuda.frontend(*args))
+    plain = cuda_ms(lambda: frontend.frontend(*args), reps=3)
+    nbytes = kf_bytes(args, gev)
+    bound_ms, by = bound(nbytes, 0)
+    over = int((gn > dpk.MAX_EVENTS).sum())
+    log(f"KF {title}: B {gn.shape[0]} x Lp {args[6]}; every output bitwise "
+        f"equal to its twin ({int(gn.sum())} events, {over} reads past "
+        f"{dpk.MAX_EVENTS}), K3's genes on KF's rows equal to those on the "
+        f"twin's, KF host syncs 0 (sync debug mode error); KF {ms:.4f} ms "
+        f"(device, CUDA events), twin {plain:.4f} ms; bound {bound_ms:.4f} "
+        f"ms ({nbytes / 1e6:.3f} MB over 3.35 TB/s) [{gpu_line()}]")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": by, "max_abs_err": err, "n_events": int(gn.sum()),
+            "reads_past_max_events": over}
 
 
 def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
                     subs=False):
-    """Host-clock stage times (synchronised) of one 2,048-read chunk, in
-    substitution mode with ``subs`` (``quals``: qualities by header), K3
-    and its twin (event DP, then traceback) as separate stages; then K3
-    against its twin on the chunk's rows (``k3_check``) with the f64 and
-    the f32 carry, recorded in K3["cases"]."""
+    """Host-clock stage times (synchronised; each stage runs once untimed
+    first, so that none pays for loading its kernels) of one 2,048-read
+    chunk, in substitution mode with ``subs`` (``quals``: qualities by
+    header), K3 and its twin (event DP, then traceback) as separate
+    stages; then K3 against its twin on the chunk's rows (``k3_check``)
+    with the f64 and the f32 carry, recorded in K3["cases"]."""
     import numpy as np
     import torch
 
@@ -839,7 +920,7 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
     from glimmer_mg_torch.host import dna
     from glimmer_mg_torch.ops import device_predict as dpk
     from glimmer_mg_torch.ops import event_dp, event_dp_cuda, frontend
-    from glimmer_mg_torch.ops import icm_cuda
+    from glimmer_mg_torch.ops import frontend_cuda, icm_cuda
 
     chunk = reads[:2048]
     cache, ids, models, group = {}, {}, [], []
@@ -881,6 +962,7 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
     times = {}
 
     def stage(name, fn):
+        fn()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -892,14 +974,17 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
         dev["gene_mip"], dev["gene_probs"], dev["indep_mip"],
         dev["indep_probs"], reads_t, lens, grp, model_len=bank.model_len,
         depth=bank.depth))
-    rows = {}
+    rows, kf_in = {}, {}
     for fdt in (torch.float64, torch.float32):
         c = dict(consts, fdt=fdt)
-        ev, n_ev = stage("frontend" + ("" if fdt == torch.float64
-                                       else "_f32"),
-                         lambda: frontend.frontend(
-                             reads_t, lens, grp, g6, i6, dev, 768, c,
-                             dpk.MAX_EVENTS, quals=q_t))
+        carry = "" if fdt == torch.float64 else "_f32"
+        fargs = (reads_t, lens, grp, g6, i6, dev, 768, c, dpk.MAX_EVENTS)
+        ev, n_ev = stage("frontend (twin)" + carry,
+                         lambda: frontend.frontend(*fargs, quals=q_t))
+        if not subs:
+            stage("frontend (KF)" + carry,
+                  lambda: frontend_cuda.frontend(*fargs))
+            kf_in[fdt] = (fargs, (ev, n_ev))
         rows[fdt] = (ev, c, torch.clamp(n_ev, max=dpk.MAX_EVENTS))
     ev, _c, ne = rows[torch.float64]
     stage("event_dp_traceback (K3)", lambda: event_dp_cuda.event_dp_traceback(
@@ -921,6 +1006,10 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
         carry = "f64" if fdt == torch.float64 else "f32"
         K3["cases"][f"{mode}_{carry}"] = k3_check(
             f"{mode} {carry}", ev, dev, grp, c, ne)
+    for fdt, (fargs, want) in kf_in.items():
+        carry = "f64" if fdt == torch.float64 else "f32"
+        KF["cases"][f"{mode}_{carry}"] = kf_check(
+            f"{mode} {carry}", fargs, want, dev, grp)
 
 
 def predict_blocks(text):
@@ -943,7 +1032,7 @@ def pipeline_phase(root, icm_dir, gd, bank, reads, cmap, check):
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
     from glimmer_mg_torch.host import write_fasta
-    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
+    from glimmer_mg_torch.ops import event_dp_cuda, frontend_cuda, icm_cuda
     from glimmer_mg_torch.parallel import phymm
     from glimmer_mg_torch.pipeline import glimmer_mg_pipe as pipe
 
@@ -954,6 +1043,7 @@ def pipeline_phase(root, icm_dir, gd, bank, reads, cmap, check):
     tmg.reset_counters()
     icm_cuda.reset_launches()
     event_dp_cuda.reset_launches()
+    frontend_cuda.reset_launches()
     t0 = time.perf_counter()
     final = pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=0,
                               workdir=work, timers=timers)
@@ -961,10 +1051,12 @@ def pipeline_phase(root, icm_dir, gd, bank, reads, cmap, check):
     cold = time.perf_counter() - t0
     k1, k2 = icm_cuda.launches, icm_cuda.bank_walk_launches
     K3["paths"]["pipeline"] = k3 = event_dp_cuda.launches
+    KF["paths"]["pipeline"] = kf = frontend_cuda.launches
     counts = dict(tmg.counters)
     log(f"pipeline path (cold): {len(reads)} reads in {cold:.2f} s; "
-        f"K2 launches {k2}, K1 launches {k1}, K3 launches {k3}; routes "
-        f"{counts}")
+        f"K2 launches {k2}, K1 launches {k1}, K3 launches {k3}, KF "
+        f"launches {kf}; routes {counts}")
+    assert kf > 0, "the pipeline did not launch KF"
     log_parts("pipeline (iterate=0, cold)", cold,
               {st.name: st.wall_s for st in timers.stages})
     assert k2 > 0, "the pipeline did not launch K2"
@@ -1087,12 +1179,13 @@ def em_probes():
     synchronised before and after."""
     import torch
 
-    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
+    from glimmer_mg_torch.ops import event_dp_cuda, frontend_cuda, icm_cuda
     from glimmer_mg_torch.ops import icm_train_device as itd
     from glimmer_mg_torch.pipeline import glimmer_mg_pipe as pipe, scimm
 
     rec = {"train_ms": [], "hist_ms": [], "k2_ms": [], "moved": [],
-           "scimm": 0, "repredict": 0, "repredict_k3": 0, "in_em": False,
+           "scimm": 0, "repredict": 0, "repredict_k3": 0, "repredict_kf": 0,
+           "in_em": False,
            "in_repredict": False}
     real = {(itd, "train_icm_bank"): itd.train_icm_bank,
             (itd, "level_histogram"): itd.level_histogram,
@@ -1148,6 +1241,7 @@ def em_probes():
 
     def repredict(*a, **k):
         n0, n3 = icm_cuda.launches, event_dp_cuda.launches
+        nf = frontend_cuda.launches
         rec["in_repredict"] = True
         try:
             return real[pipe, "repredict"](*a, **k)
@@ -1155,6 +1249,7 @@ def em_probes():
             rec["in_repredict"] = False
             rec["repredict"] += icm_cuda.launches - n0
             rec["repredict_k3"] += event_dp_cuda.launches - n3
+            rec["repredict_kf"] += frontend_cuda.launches - nf
 
     probes = {(itd, "train_icm_bank"): train,
               (itd, "level_histogram"): hist,
@@ -1253,9 +1348,12 @@ def iterate_phase(root, icm_dir, gd, reads, check):
         f"init_clusters_from_results made {n_clusters} clusters (family "
         f"rank); K2 launches {k2} ({rec['scimm']} in the EM), K1 launches "
         f"{k1} ({rec['repredict']} in repredict), K3 launches in repredict "
-        f"{rec['repredict_k3']}; routes {dict(tmg.counters)}")
+        f"{rec['repredict_k3']}, KF launches in repredict "
+        f"{rec['repredict_kf']}; routes {dict(tmg.counters)}")
     K3["paths"]["repredict"] = rec["repredict_k3"]
+    KF["paths"]["repredict"] = rec["repredict_kf"]
     assert rec["repredict_k3"] > 0, "repredict did not launch K3"
+    assert rec["repredict_kf"] > 0, "repredict did not launch KF"
     log_parts("iterate pipeline (cold)", cold,
               {st.name: st.wall_s for st in timers.stages})
     log_em("device EM (cold run)", rec)
@@ -1508,11 +1606,12 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
     import torch
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
-    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
+    from glimmer_mg_torch.ops import event_dp_cuda, frontend_cuda, icm_cuda
 
     tmg.reset_counters()
     icm_cuda.reset_launches()
     event_dp_cuda.reset_launches()
+    frontend_cuda.reset_launches()
     with widest_six_frame() as widest:
         t0 = time.perf_counter()
         out = list(tmg.run_glimmer_mg_classes(reads, gd, cmap, device=DEVICE,
@@ -1521,6 +1620,9 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
         cold = time.perf_counter() - t0
     launches, counts = icm_cuda.launches, dict(tmg.counters)
     K3["paths"][name.split()[0]] = event_dp_cuda.launches
+    # KF covers the error-free mode only: the error modes run the plain
+    # frontend (substitution mode) or the native engine (indel mode)
+    assert frontend_cuda.launches == 0, frontend_cuda.launches
     genes = [g for _h, gs in out for g in gs]
     log(f"{name} pass 1: {len(out)} reads in {cold:.2f} s; K1 launches "
         f"{launches}, K3 launches {event_dp_cuda.launches}; routes "
@@ -1896,7 +1998,7 @@ def mesh_rank(work):
     from glimmer_mg_torch.engine import glimmer_mg as tmg
     from glimmer_mg_torch.host import GenomeData, read_fasta
     from glimmer_mg_torch.ops import device_predict as dpk
-    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
+    from glimmer_mg_torch.ops import event_dp_cuda, frontend_cuda, icm_cuda
     from glimmer_mg_torch.parallel import mesh as pmesh, phymm
     from glimmer_mg_torch.parallel.predict import predict_batch_sharded
     from glimmer_mg_torch.pipeline import scimm
@@ -1984,6 +2086,7 @@ def mesh_rank(work):
             batches.append((jobs, bank, [t.cpu().numpy() for t in batch]))
         icm_cuda.reset_launches()
         event_dp_cuda.reset_launches()
+        frontend_cuda.reset_launches()
         sharded = []
         with widest_six_frame() as widest:
             pmesh.barrier()
@@ -1994,7 +2097,8 @@ def mesh_rank(work):
             torch.cuda.synchronize()
             res["wall_s"][tag] = time.perf_counter() - t0
         res["launches"][tag] = {"K1": icm_cuda.launches,
-                                "K3": event_dp_cuda.launches}
+                                "K3": event_dp_cuda.launches,
+                                "KF": frontend_cuda.launches}
         same, shape = k1_check(widest)
         res["k1"] = {"bitwise": same, "shape": shape}
         if pmesh.is_output_process():
@@ -2235,10 +2339,13 @@ def mesh_phase(root, icm_dir, reads, cmap, out5, overflow5):
     assert all(x["k1"]["bitwise"] for x in ranks)
     assert all(x["launches"][tag]["K1"] > 0 for x in ranks)
     assert all(x["launches"][tag]["K3"] > 0 for x in ranks)
+    assert all(x["launches"][tag]["KF"] > 0 for x in ranks)
     k1 += sum(x["launches"][tag]["K1"] for x in ranks)
     K3["paths"]["mesh"] = sum(x["launches"][tag]["K3"] for x in ranks)
+    KF["paths"]["mesh"] = sum(x["launches"][tag]["KF"] for x in ranks)
     log(f"11b K3 launches per rank "
-        f"{[x['launches'][tag]['K3'] for x in ranks]}")
+        f"{[x['launches'][tag]['K3'] for x in ranks]}, KF launches per rank "
+        f"{[x['launches'][tag]['KF'] for x in ranks]}")
     log(f"phase 11b: {MESH_RANKS} ranks on gloo, "
         f"{time.perf_counter() - t_b:.1f} s")
     return k1, k2
@@ -2327,7 +2434,9 @@ def bench_phase(root):
     assert cfg["byte_identical"] and res["coords_identical"], (cfg, res)
     assert cfg["k1_launches"] > 0 and res["k1_launches"] > 0, (cfg, res)
     assert res["k3_launches"] > 0 and acc["k3_launches"] > 0, (res, acc)
+    assert res["kf_launches"] > 0 and acc["kf_launches"] > 0, (res, acc)
     K3["paths"]["bench"] = acc["k3_launches"] + res["k3_launches"]
+    KF["paths"]["bench"] = acc["kf_launches"] + res["kf_launches"]
     full = bench.Sizes()
     log(f"12 glimmer_mg_reads_per_s on {d['reads']} tiled reads x "
         f"{sizes.passes} timed passes (the command line's {full.reads:,} x "
@@ -2369,7 +2478,7 @@ def main(argv=None):
 
     from glimmer_mg_torch import _build
     from glimmer_mg_torch.engine import glimmer_mg as tmg
-    from glimmer_mg_torch.ops import event_dp_cuda, icm_cuda
+    from glimmer_mg_torch.ops import event_dp_cuda, frontend_cuda, icm_cuda
     from glimmer_mg_torch.parallel import phymm
 
     log(gpu_line())
@@ -2382,6 +2491,8 @@ def main(argv=None):
         f"(nvcc {_build.build_seconds})")
     for line in ptxas_lines("event_dp", "event_dp_kernel"):
         log(f"K3 ptxas: {line}")
+    for line in ptxas_lines("frontend", "frontend_kernel"):
+        log(f"KF ptxas: {line}")
 
     with tempfile.TemporaryDirectory(prefix="gmt_smoke_") as root:
         t0 = time.perf_counter()
@@ -2406,6 +2517,7 @@ def main(argv=None):
         tmg.reset_counters()
         icm_cuda.reset_launches()
         event_dp_cuda.reset_launches()
+        frontend_cuda.reset_launches()
         t0 = time.perf_counter()
         out = list(tmg.run_glimmer_mg_classes(reads, gd, cmap,
                                               device=DEVICE))
@@ -2413,13 +2525,17 @@ def main(argv=None):
         cold = time.perf_counter() - t0
         launches = icm_cuda.launches
         K3["paths"]["prediction"] = event_dp_cuda.launches
+        KF["paths"]["prediction"] = frontend_cuda.launches
         counts = dict(tmg.counters)
         log(f"prediction path pass 1: {len(out)} reads in {cold:.2f} s; "
             f"K1 launches {launches}, K3 launches "
-            f"{event_dp_cuda.launches}; routes {counts}")
+            f"{event_dp_cuda.launches}, KF launches "
+            f"{frontend_cuda.launches}; routes {counts}")
         assert launches > 0, "the prediction path did not launch K1"
         assert event_dp_cuda.launches > 0, \
             "the prediction path did not launch K3"
+        assert frontend_cuda.launches > 0, \
+            "the prediction path did not launch KF"
         assert len(out) == len(reads)
         assert counts["device_reads"] + counts["host_reads"] == len(reads)
         assert counts["host_reads"] == counts["overflow_reads"], counts
@@ -2513,6 +2629,18 @@ def main(argv=None):
         **{k: cases["error_free_f64"][k] for k in ("ms", "plain_ms",
                                                    "bound_ms", "bound_by")},
         "library_ms": None, "cases": cases}
+    kf_paths = {k: v for k, v in KF["paths"].items() if v}
+    kf_cases = KF["cases"]
+    kf_record = {
+        "name": "frontend", "route": "cuda",
+        "source": "glimmer_mg_torch/csrc/frontend.cu",
+        "replaces": "glimmer_mg_tpu/ops/device_predict.py:2617",
+        "launches": sum(kf_paths.values()), "launches_by_path": kf_paths,
+        "max_abs_err": max(c["max_abs_err"] for c in kf_cases.values()),
+        **{k: kf_cases["error_free_f64"][k] for k in ("ms", "plain_ms",
+                                                      "bound_ms",
+                                                      "bound_by")},
+        "library_ms": None, "cases": kf_cases}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "kernel_ms", "kernel_ms_cold", "checked_ms", "launches_by_path",
@@ -2520,7 +2648,7 @@ def main(argv=None):
     print(gpu_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in
                                   (record, k2_record, k2_int8_record,
-                                   k3_record)]}))
+                                   k3_record, kf_record)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -110,5 +110,13 @@ def lib() -> ctypes.CDLL:
             cdll.gmt_bank_walk.restype = i
             cdll.gmt_event_dp.argtypes = [p] * 26 + [i] * 7 + [p]
             cdll.gmt_event_dp.restype = i
+            ll, d = ctypes.c_longlong, ctypes.c_double
+            cdll.gmt_frontend.argtypes = ([p] * 28 + [ll] + [i] * 13
+                                          + [d, d, p])
+            cdll.gmt_frontend.restype = i
+            cdll.gmt_frontend_ws.argtypes = [i, i]
+            cdll.gmt_frontend_ws.restype = ll
+            cdll.gmt_frontend_smem_room.argtypes = [i, i]
+            cdll.gmt_frontend_smem_room.restype = i
             _LIB = cdll
         return _LIB

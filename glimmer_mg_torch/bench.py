@@ -251,12 +251,13 @@ def icm_bank_scoring(sample_root, device, sizes):
 def gene_accuracy(sample_root, device, work_dir, sizes):
     """The ``gene_accuracy`` row: ``simulated_benchmark`` on ``device``,
     its DB and work directory in ``work_dir``."""
-    from .ops import event_dp_cuda, icm_cuda
+    from .ops import event_dp_cuda, frontend_cuda, icm_cuda
     from .pipeline import accuracy
 
     device = torch.device(device)
     icm_cuda.reset_launches()
     event_dp_cuda.reset_launches()
+    frontend_cuda.reset_launches()
     t0 = time.perf_counter()
     out = accuracy.simulated_benchmark(
         os.path.join(work_dir, "accuracy_wk"), n_reads=sizes.accuracy_reads,
@@ -266,14 +267,16 @@ def gene_accuracy(sample_root, device, work_dir, sizes):
     _sync(device)
     seconds = time.perf_counter() - t0
     k1, k2 = icm_cuda.launches, icm_cuda.bank_walk_launches
-    k3 = event_dp_cuda.launches
-    _require(device.type != "cuda" or (k1 > 0 and k2 > 0 and k3 > 0),
+    k3, kf = event_dp_cuda.launches, frontend_cuda.launches
+    _require(device.type != "cuda" or (k1 > 0 and k2 > 0 and k3 > 0
+                                       and kf > 0),
              f"gene_accuracy: a kernel did not launch (six-frame {k1}, "
-             f"bank walk {k2}, event DP {k3})")
+             f"bank walk {k2}, event DP {k3}, frontend {kf})")
     return {"metric": "gene_accuracy", "value": out["sensitivity"],
             "unit": "sensitivity", "vs_baseline": None,
             "detail": dict(out, device=_device_name(device), k1_launches=k1,
-                           k2_launches=k2, k3_launches=k3, seconds=seconds,
+                           k2_launches=k2, k3_launches=k3,
+                           kf_launches=kf, seconds=seconds,
                            baseline=BASELINE)}
 
 
@@ -316,7 +319,7 @@ def glimmer_mg_reads_per_s(db_root, classes, sample_root, device, sizes):
     from . import native
     from .engine import glimmer_mg as tmg
     from .io.genome_data import GenomeData
-    from .ops import event_dp_cuda, icm_cuda
+    from .ops import event_dp_cuda, frontend_cuda, icm_cuda
 
     device = torch.device(device)
     reads1k, lines1k = bench_db.bench_reads_and_classes(
@@ -340,6 +343,7 @@ def glimmer_mg_reads_per_s(db_root, classes, sample_root, device, sizes):
         tmg.reset_counters()
         icm_cuda.reset_launches()
         event_dp_cuda.reset_launches()
+        frontend_cuda.reset_launches()
         ok = same(run(**kw))
         _out, times = _timed_runs(lambda: run(**kw), passes)
         med, mad = _med_mad(times)
@@ -347,6 +351,7 @@ def glimmer_mg_reads_per_s(db_root, classes, sample_root, device, sizes):
                     "mad_s": mad, "runs_s": times, "passes": passes + 1,
                     "k1_launches": icm_cuda.launches,
                     "k3_launches": event_dp_cuda.launches,
+                    "kf_launches": frontend_cuda.launches,
                     "counters": dict(tmg.counters)}
 
     primary = {"engine": "native", "precompute": "host"}
@@ -377,6 +382,8 @@ def glimmer_mg_reads_per_s(db_root, classes, sample_root, device, sizes):
              "the six-frame kernel did not launch")
     _require(device.type != "cuda" or dev_res["k3_launches"] > 0,
              "the event-DP kernel did not launch on the device route")
+    _require(device.type != "cuda" or dev_res["kf_launches"] > 0,
+             "the frontend kernel did not launch on the device route")
     med, mad = _med_mad(times)
     return {"metric": "glimmer_mg_reads_per_s", "value": len(reads) / med,
             "unit": "reads/s", "vs_baseline": None,

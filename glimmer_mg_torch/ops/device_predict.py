@@ -5,8 +5,10 @@ error-free and the substitution mode, with or without per-base qualities
 (no indel branching, linear reads, truncated ORFs allowed, default start
 codons). The six-frame ICM
 log-probs come from ``ops.icm_cuda`` and stay on the device; the ORF and
-start-candidate frontend and event assembly (here) run as tensor code on
-the same device, the windowed event-graph DP and the traceback as one
+start-candidate frontend and event assembly run as one launch of KF
+(``ops.frontend_cuda``) in the error-free mode and as tensor code on the
+same device in the substitution mode (on CPU tensors, both as the plain
+``ops.frontend``), the windowed event-graph DP and the traceback as one
 launch of K3 (``ops.event_dp_cuda``; on CPU tensors its plain version,
 ``ops.event_dp``), and only gene records come back to the host.
 
@@ -432,7 +434,7 @@ def predict_batch_device(bank: DeviceBank, dev_bank: dict, reads, lengths,
     is a gene's substitution record (-1 for none), n_flag the event count,
     or MAX_EVENTS + 1 for reads the DP's row window could not serve.
     """
-    from . import event_dp_cuda, frontend
+    from . import event_dp_cuda, frontend_cuda
 
     b, L0 = reads.shape
     Lp = L0 + (-L0) % 3
@@ -456,9 +458,9 @@ def predict_batch_device(bank: DeviceBank, dev_bank: dict, reads, lengths,
                                     value=255)
 
     max_events = MAX_EVENTS
-    ev, n_events = frontend.frontend(reads, lengths, groups, gene6, ind6,
-                                     dev_bank, Lp, consts, max_events,
-                                     quals=q)
+    ev, n_events = frontend_cuda.frontend(reads, lengths, groups, gene6,
+                                          ind6, dev_bank, Lp, consts,
+                                          max_events, quals=q)
     ne = torch.clamp(n_events, max=max_events)
     _score, _bp, _best, wovf, *genes = event_dp_cuda.event_dp_traceback(
         ev, dev_bank, groups, consts, ne)

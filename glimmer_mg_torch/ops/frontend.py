@@ -6,6 +6,11 @@ PyTorch counterpart of the error-free frontend of
 multiple of 3; per-ORF values live at the ORF's closing-stop position and
 reach the ORF's members through frame-class fill scans.
 
+With ``consts["subs"]`` false this is the plain version of KF
+(``csrc/frontend.cu``, launched by ``ops.frontend_cuda.frontend`` on CUDA
+tensors), which matches it bit for bit; float operations keep one order
+on every device for that (the class-PWM sum, true divisions).
+
 Reference anchors (behavioural spec):
   Find_Orfs / Do_*_Stop_Codon        glimmer_base.cc:461-780
   Score_Orfs_Errors / Score_Orf_Starts  glimmer-mg.cc:1605-1860
@@ -419,8 +424,18 @@ def _pwm_arrays(seq, gi, bank, pwm_w: int, fdt):
     cmask = (torch.arange(C, device=dev)[None, :] < nm[:, None])[:, :, None]
     denom = torch.clamp(nm, min=1).to(fdt)[:, None]
     zero = torch.zeros((), dtype=fdt, device=dev)
-    mixf = torch.sum(torch.where(cmask, prod_f, zero), dim=1) / denom
-    mixr = torch.sum(torch.where(cmask, prod_r, zero), dim=1) / denom
+
+    def class_sum(prod):
+        """Masked sum over the C class PWMs, left to right (a fixed order
+        on every device; csrc/frontend.cu adds in the same order)."""
+        m = torch.where(cmask, prod, zero)
+        acc = m[:, 0]
+        for ci in range(1, C):
+            acc = acc + m[:, ci]
+        return acc
+
+    mixf = class_sum(prod_f) / denom
+    mixr = class_sum(prod_r) / denom
     is_user = bank["pwm_is_user"][gil][:, None]
     has_mix = (nm > 0)[:, None]
     sc_f = torch.where(is_user, uf, torch.log(mixf) - gcf)
@@ -476,17 +491,25 @@ def _pwm_at(pwt, key_b, key_s, pos, fdt):
 
 
 def _add_pwm(score, pwm, sep):
-    """Add_Events' separation-weighted RBS boost (glimmer_base.cc:267-295)."""
+    """Add_Events' separation-weighted RBS boost (glimmer_base.cc:267-295).
+    The divisors are tensors on the score's device: PyTorch's CUDA kernel
+    multiplies by the reciprocal of a Python-number divisor, which is not
+    the true division the CPU (and csrc/frontend.cu) computes. They are
+    filled on the device (``torch.full``), not copied from the host, which
+    would synchronise the stream."""
     LO_SEP, HI_SEP, HI_TAIL = 4, 10, 6
     sepf = sep.to(score.dtype)
-    zero = torch.zeros((), dtype=score.dtype, device=score.device)
+
+    def const(v):
+        return torch.full((), v, dtype=score.dtype, device=score.device)
+
     coeff = torch.where(
-        sep < LO_SEP, sepf / LO_SEP,
+        sep < LO_SEP, sepf / const(LO_SEP),
         torch.where(
             sep <= HI_SEP, torch.ones_like(sepf),
             torch.where(sep < HI_SEP + HI_TAIL,
-                        (HI_SEP + HI_TAIL - sep).to(score.dtype) / HI_TAIL,
-                        zero)))
+                        (HI_SEP + HI_TAIL - sep).to(score.dtype)
+                        / const(HI_TAIL), const(0.0))))
     add = (pwm >= 0.0) & (coeff > 0.0)
     return torch.where(add, score + coeff * pwm, score)
 

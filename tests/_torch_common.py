@@ -164,6 +164,30 @@ def long_reads(seed, count, lo=1450, hi=2100):
     return reads
 
 
+def start_rich_reads(seed, count, n=700):
+    """Reads dense in start codons, so that the error-free frontend finds
+    more than MAX_EVENTS candidates in some: runs of atg (a forward start
+    every codon, and cat, the reverse start, in the complement) between
+    random stretches. Every fifth read is a tiny one and every fifth one
+    holds stops only (no ORF)."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(count):
+        if i % 5 == 3:
+            s = "acgtt"
+        elif i % 5 == 4:
+            s = "taa" * (n // 3)
+        else:
+            s = ""
+            while len(s) < n:
+                s += "atg" * int(rng.integers(20, 120))
+                s += "".join(rng.choice(list("acgt"),
+                                        int(rng.integers(0, 40))))
+            s = s[:n]
+        reads.append((f"sr{i}", s))
+    return reads
+
+
 STOPS_FWD = ("taa", "tag", "tga")
 
 

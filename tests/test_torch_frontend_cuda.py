@@ -1,0 +1,262 @@
+"""KF, the error-free frontend's CUDA kernel, against its twin on the card.
+
+Needs an NVIDIA GPU with nvcc (marker ``cuda``); skipped elsewhere. Run on
+a GPU machine with ``python -m pytest -m cuda
+tests/test_torch_frontend_cuda.py -q``. The kernel
+(``ops.frontend_cuda.frontend`` on CUDA tensors, ``subs`` off) must be
+BITWISE equal to the twin (``ops.frontend.frontend`` on the same CUDA
+tensors: both take CUDA's ``log``) on every output, padding rows included:
+pos, typ, sub, id, score, trunc and n_events. Inputs: chunks at Lp 768
+(random, overlap-dense and start-rich reads, tiny and no-ORF reads, empty
+rows) and at the long reads' 2,304, batches of 1, 37 and 2,048 reads made
+from them, the f64 and the f32 carry, the RBS term on and off, every
+group on a user PWM, every start an event (reads past MAX_EVENTS), and
+reads of 2.7-3 kb (Lp 3,072), whose workspace outgrows a block's shared
+memory and goes to global scratch. The call makes
+no host sync, bad inputs raise before a launch, and
+``predict_batch_device`` on CUDA launches KF once (none in substitution
+mode) and gives the CPU run's records.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from glimmer_mg_torch.ops import device_predict as tdp
+from glimmer_mg_torch.ops import frontend, frontend_cuda, icm_score
+
+from tests._torch_common import (  # noqa: F401  (fixture)
+    batch_inputs, class_map, long_reads, overlap_dense_reads, random_reads,
+    start_rich_reads, trained_models,
+)
+
+pytestmark = pytest.mark.cuda
+
+OUT = ("pos", "typ", "sub", "id", "score", "trunc")
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def chunks(trained_models):
+    """Padded chunks as the engine buckets them (numpy): Lp 768, the long
+    reads' 2,304 and 3,072; the last rows of each are empty (n = 0)."""
+    gd, classes = trained_models
+    short = (random_reads(31, 24, lo=30, hi=700)
+             + overlap_dense_reads(32, 16, length=700)
+             + start_rich_reads(33, 20))
+    out = {}
+    for name, reads, l_pad, b_pad in (
+            ("768", short, 768, 64), ("2304", long_reads(34, 12), 2304, 16),
+            ("3072", long_reads(35, 6, lo=2700, hi=3000), 3072, 8)):
+        cmap = class_map(reads, classes, pair_every=3)
+        out[name] = batch_inputs(reads, cmap, gd, l_pad=l_pad, b_pad=b_pad)
+    return out
+
+
+class Case:
+    """One chunk's frontend arguments on a device."""
+
+    def __init__(self, batch, device, *, f64=True, rbs=True, user=False,
+                 thresh=None):
+        models_list, seqs, lengths, groups = batch
+        Lp = seqs.shape[1]
+        assert Lp % 3 == 0
+        bank = tdp.build_bank(models_list, Lp)
+        if thresh is not None:
+            bank.event_threshold = bank.start_threshold = thresh
+        cpu = tdp.bank_to_device(bank, "cpu")
+        if user:
+            # every group on a user log-odds PWM of the mixture's width
+            cpu["pwm_is_user"][:] = True
+            cpu["pwm_user"] = (torch.log(cpu["pwm_cols"][:, 0] + 0.05)
+                               - np.log(0.25)).contiguous()
+        t = torch.from_numpy
+        reads, lens, grp = t(seqs), t(lengths), t(groups)
+        g6, i6 = icm_score.mg_six_frame_batch(
+            cpu["gene_mip"], cpu["gene_probs"], cpu["indep_mip"],
+            cpu["indep_probs"], reads, lens, grp, model_len=bank.model_len,
+            depth=bank.depth)
+        self.bank = {k: v.to(device) for k, v in cpu.items()}
+        self.arrays = [x.to(device) for x in (reads, lens, grp, g6, i6)]
+        self.Lp = Lp
+        self.consts = dict(
+            min_gene_len=bank.min_gene_len, max_olap=bank.max_olap,
+            event_threshold=bank.event_threshold,
+            start_threshold=bank.start_threshold, ws=bank.ribosome_window,
+            W=bank.pwm_w if rbs else 0,
+            fdt=torch.float64 if f64 else torch.float32, subs=False)
+
+    def tiled(self, idx):
+        """The same case over the reads ``idx`` (a batch made of them)."""
+        out = object.__new__(Case)
+        out.__dict__.update(self.__dict__)
+        idx = torch.as_tensor(np.asarray(idx), device=self.arrays[0].device)
+        out.arrays = [a[idx].contiguous() for a in self.arrays]
+        return out
+
+    def args(self):
+        s, n, g, g6, i6 = self.arrays
+        return (s, n, g, g6, i6, self.bank, self.Lp, self.consts,
+                tdp.MAX_EVENTS)
+
+
+def kernel(case):
+    """One counted launch of KF, synchronised."""
+    frontend_cuda.reset_launches()
+    out = frontend_cuda.frontend(*case.args())
+    torch.cuda.synchronize()
+    assert frontend_cuda.launches == 1
+    return out
+
+
+def assert_bitwise(want, got):
+    (wev, wn), (gev, gn) = want, got
+    assert wn.dtype == gn.dtype == torch.int32
+    assert torch.equal(wn.cpu(), gn.cpu()), int((wn != gn).sum())
+    for name in OUT:
+        a, b = wev[name].cpu(), gev[name].cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype.is_floating_point:
+            iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+            a, b = a.view(iv), b.view(iv)
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.fixture(scope="module")
+def cases(cuda, chunks):
+    cache = {}
+
+    def get(chunk, **kw):
+        key = (chunk, tuple(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = Case(chunks[chunk], cuda, **kw)
+        return cache[key]
+    return get
+
+
+@pytest.mark.parametrize("rbs", [True, False], ids=["rbs", "no_rbs"])
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+@pytest.mark.parametrize("b", [1, 37, 2048])
+@pytest.mark.parametrize("chunk", ["768", "2304"])
+def test_kernel_bitwise_equals_twin(cases, chunk, b, f64, rbs):
+    """Batches of b reads drawn from the chunk (its most event-rich read
+    alone for b = 1)."""
+    case = cases(chunk, f64=f64, rbs=rbs)
+    if b == 1:
+        _ev, n = frontend.frontend(*case.args())
+        idx = [int(torch.argmax(n))]
+    else:
+        idx = np.random.default_rng(b).integers(0, case.arrays[0].shape[0],
+                                                b)
+    case = case.tiled(idx)
+    assert_bitwise(frontend.frontend(*case.args()), kernel(case))
+
+
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+def test_kernel_user_pwm(cases, f64):
+    case = cases("768", f64=f64, user=True)
+    want = frontend.frontend(*case.args())
+    assert_bitwise(want, kernel(case))
+
+
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+def test_kernel_every_start_an_event(cases, f64):
+    """Thresholds -1e9: reads past MAX_EVENTS (n_events counts them all),
+    next to empty, tiny and no-ORF reads."""
+    case = cases("768", f64=f64, thresh=-1e9)
+    want = frontend.frontend(*case.args())
+    n = want[1].cpu()
+    assert (n > tdp.MAX_EVENTS).sum() >= 3
+    assert (n == 0).sum() >= 4
+    assert (case.arrays[1].cpu() == 0).sum() >= 4
+    assert_bitwise(want, kernel(case))
+
+
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+def test_kernel_global_scratch(cases, cuda, f64):
+    """Reads of 2.7-3 kb: the workspace outgrows a block's shared memory
+    and goes to a global scratch buffer (a few blocks an SM, each looping
+    over reads: 300 reads here)."""
+    case = cases("3072", f64=f64)
+    assert (frontend_cuda.workspace_bytes(case.Lp, f64)
+            > frontend_cuda._smem_room(cuda, f64, True))
+    case = case.tiled(np.arange(300) % 8)
+    assert_bitwise(frontend.frontend(*case.args()), kernel(case))
+
+
+def test_kernel_makes_no_host_sync(cases):
+    case = cases("768", f64=True)
+    kernel(case)  # built and loaded
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = frontend_cuda.frontend(*case.args())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert_bitwise(frontend.frontend(*case.args()), out)
+
+
+@pytest.mark.parametrize("bad", ["int64_seq", "cpu_n", "short_gene6",
+                                 "strided_ind6", "f64_gene6", "Lp",
+                                 "int64_groups", "short_len_score"])
+def test_bad_inputs_raise_before_launch(cases, bad):
+    case = cases("768", f64=True)
+    s, n, g, g6, i6, bank, Lp, consts, E = case.args()
+    bank = dict(bank)
+    if bad == "int64_seq":
+        s = s.long()
+    elif bad == "cpu_n":
+        n = n.cpu()
+    elif bad == "short_gene6":
+        g6 = g6[:, :5].contiguous()
+    elif bad == "strided_ind6":
+        i6 = i6.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "f64_gene6":
+        g6 = g6.double()
+    elif bad == "Lp":
+        Lp = Lp - 1
+    elif bad == "int64_groups":
+        g = g.long()
+    else:
+        bank["len_score"] = bank["len_score"][:, :2].contiguous()
+    frontend_cuda.reset_launches()
+    with pytest.raises((TypeError, ValueError)):
+        frontend_cuda.frontend(s, n, g, g6, i6, bank, Lp, consts, E)
+    assert frontend_cuda.launches == 0
+
+
+@pytest.mark.parametrize("subs", [False, True], ids=["error_free", "subs"])
+def test_predict_batch_device_launches_kf(cuda, chunks, subs):
+    """The device batch entry point on CUDA tensors launches KF once a
+    chunk in the error-free mode and never in substitution mode, and
+    returns the CPU run's records (scores at %8.2f: log and the six-frame
+    walk are each device's own)."""
+    models_list, seqs, lengths, groups = chunks["768"]
+    bank = tdp.build_bank(models_list, seqs.shape[1])
+    cpu = [torch.from_numpy(a) for a in (seqs, lengths, groups)]
+    dev = tdp.bank_to_device(bank, "cpu")
+    g6, i6 = icm_score.mg_six_frame_batch(
+        dev["gene_mip"], dev["gene_probs"], dev["indep_mip"],
+        dev["indep_probs"], *cpu, model_len=bank.model_len, depth=bank.depth)
+    outs = []
+    for device in ("cpu", cuda):
+        frontend_cuda.reset_launches()
+        outs.append(tdp.predict_batch_device(
+            bank, tdp.bank_to_device(bank, device),
+            *(x.to(device) for x in (*cpu, g6, i6)), subs=subs))
+        assert frontend_cuda.launches == (device == cuda and not subs)
+    fmt = np.vectorize(lambda x: "%8.2f" % x)
+    names = ("g_id g_stop g_len g_sign g_trunc g_score g_epos g_etyp cnt "
+             "n_flag").split()
+    for name, a, b in zip(names, *outs):
+        if name == "g_score":
+            assert (fmt(a) == fmt(b)).all(), name
+        else:
+            assert np.array_equal(a, b), name
+    assert outs[0][8].sum() > 20
