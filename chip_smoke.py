@@ -32,7 +32,7 @@ Phases (any failure raises and exits non-zero):
      .predict text byte-identical to the exact host engine (the port's
      own copy of the pure numpy/Python per-read engine, engine/mg_host.py,
      run with engine="host"), finite scores, K3 (the event DP and
-     traceback kernel) and KF (the error-free frontend kernel) launched.
+     traceback kernel) and KF (the frontend kernel) launched.
      Prints warm reads/s from a second pass, a third pass's wall time
      split by layer (chunk overlap off, as in every split), a pass with
      the f32 score carry, and a per-stage breakdown of one chunk, KF and
@@ -84,18 +84,20 @@ Phases (any failure raises and exits non-zero):
      qualities=...). Checks: K1 launched, only overflow reads took the
      host route (at most 5%), the first reads' .predict text, substitution
      records included, byte-identical to the host engine, at least 1% of
-     the genes carry a substitution record, K3 launched. Prints warm
-     reads/s, a warm pass's wall split by layer and a per-stage breakdown
-     of one chunk with phase 5's K3 checks (qualities included); K1
-     against its twin, bitwise, on the inputs of the path's K1 call with
-     the most bank rows (B, L and G printed);
+     the genes carry a substitution record, K3 and KF (in its
+     substitution mode) launched. Prints warm reads/s, a warm pass's wall
+     split by layer and a per-stage breakdown of one chunk with phase 5's
+     K3 and KF checks (qualities included; KF also on the same chunk
+     without them, err_pos and err_typ among its outputs); K1 against its
+     twin, bitwise, on the inputs of the path's K1 call with the most bank
+     rows (B, L and G printed);
   8. indel mode: 454-like reads (homopolymer indels at 0.3% per base, no
      quality file) through run_glimmer_mg_classes(device="cuda",
      allow_indels=True): K1 on the card, then the native C++ engine on the
      host. Checks: K1 launched, every read counted in native_reads, the
      first 64 reads byte-identical to the host engine, K1 against its
-     twin on the route's own inputs as in phase 7. Prints warm reads/s
-     and the engine's thread count;
+     twin on the route's own inputs as in phase 7, KF launched 0 times.
+     Prints warm reads/s and the engine's thread count;
   9. engine routes: phase 5's error-free reads and phase 7's substitution
      reads through run_glimmer_mg_classes(engine="native"), the native
      C++ engine on six-frame scores from K1 (precompute "device": packed
@@ -104,7 +106,8 @@ Phases (any failure raises and exits non-zero):
      native_reads and none on the host route, K1 bitwise equal to its
      twin on the route's widest call, every .predict byte-identical to
      the device route's on the same reads and the first 256 to the host
-     engine. Prints warm reads/s of each route, the device route with the
+     engine, KF launched by the device route's passes (each mode). Prints
+     warm reads/s of each route, the device route with the
      chunk overlap on and off, a native pass split by layer (K1's share
      among it) and the f64 score copy's ms for one chunk, pinned against
      pageable;
@@ -159,11 +162,12 @@ reads/s rows), K2's the sum over classification (phase 6), the EM (phase
 6b), phase 11's classification and EM and phase 12's bank-walk and
 accuracy rows, K3's the sum over the paths that run the device route
 (phases 5, 6, 6b's repredict, 7, 11's prediction and 12's accuracy and
-device_resident rows), KF's the sum over those that run it error-free
-(all but 7: the error modes of phases 7 and 8 launch it 0 times, which
-they assert); "launches_by_path" gives each. K3's and KF's "ms",
-"plain_ms" and bound are those of phase 5's chunk (error-free, f64);
-"cases" gives each mode and carry.
+device_resident rows), KF's the sum over the same paths and phase 9's
+device-route passes of each mode (indel mode, phase 8, launches it 0
+times, which it asserts); "launches_by_path" gives each. K3's and KF's
+"ms", "plain_ms" and bound are those of phase 5's chunk (error-free,
+f64); "cases" gives each mode and carry (KF: error_free, subs and
+subs_quals, each f64 and f32).
 
 The script imports only glimmer_mg_torch and checks at the end, after
 the bench, that no module of JAX or of glimmer_mg_tpu was loaded.
@@ -829,15 +833,17 @@ def k3_check(title, ev, dev, grp, consts, ne):
 # K3's records: its launches on each path (phases fill "paths") and its
 # time on the smoke's chunk in each mode and carry ("cases").
 K3 = {"paths": {}, "cases": {}}
-# KF's records, the same for the error-free frontend kernel.
+# KF's records, the same for the frontend kernel.
 KF = {"paths": {}, "cases": {}}
 
 
-def kf_bytes(args, ev):
+def kf_bytes(args, ev, quals=None):
     """Bytes KF must move for one call: each input read once (the reads,
     lengths, groups, the bank tables it reads, and of K1's two six-frame
     tables only the positions below each read's length, the only ones KF
-    reads), each output written once (the event rows and n_events)."""
+    reads; in substitution mode the quality matrix and _CP_TAB, when
+    given), each output written once (the event rows, with err_pos and
+    err_typ in substitution mode, and n_events)."""
     seq, n, gi, g6, i6, bank = args[:6]
     Lp = args[6]
     tables = ("fwd_start rev_start fwd_stop rev_stop which_fwd which_rev "
@@ -847,30 +853,34 @@ def kf_bytes(args, ev):
     inputs = sum(t.nbytes for t in (seq, n, gi))
     inputs += 2 * 6 * g6.element_size() * live
     inputs += sum(bank[k].nbytes for k in tables)
+    if quals is not None:
+        inputs += quals.nbytes + 256 * 8
     return inputs + sum(t.nbytes for t in ev.values()) + n.nbytes
 
 
-def kf_check(title, args, want, dev, grp):
+def kf_check(title, args, want, dev, grp, quals=None):
     """KF against its twin on one chunk (``args`` the frontend's
-    arguments, ``want`` the twin's (ev, n_events) on them): bitwise on
-    every output, no host sync (sync debug mode "error"), K3 on KF's rows
-    giving the genes of K3 on the twin's; KF's device time (CUDA events),
-    the twin's and the bound. Returns KF's case record."""
+    arguments, ``quals`` its qualities in substitution mode, ``want`` the
+    twin's (ev, n_events) on them): bitwise on every output, no host sync
+    (sync debug mode "error"), K3 on KF's rows giving the genes of K3 on
+    the twin's; KF's device time (CUDA events), the twin's and the bound.
+    Returns KF's case record."""
     import torch
 
     from glimmer_mg_torch.ops import event_dp_cuda, frontend, frontend_cuda
     from glimmer_mg_torch.ops import device_predict as dpk
 
-    frontend_cuda.frontend(*args)  # warm
+    frontend_cuda.frontend(*args, quals=quals)  # warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = frontend_cuda.frontend(*args)
+        got = frontend_cuda.frontend(*args, quals=quals)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     (wev, wn), (gev, gn) = want, got
     assert torch.equal(wn, gn), f"KF n_events differ ({title})"
+    assert set(wev) == set(gev), (title, sorted(wev), sorted(gev))
     for k, a in wev.items():
         b = gev[k]
         if a.dtype.is_floating_point:
@@ -889,20 +899,27 @@ def kf_check(title, args, want, dev, grp):
     diff = (wev["score"] - gev["score"]).abs()
     diff = diff[torch.isfinite(diff)]
     err = float(diff.max()) if diff.numel() else 0.0
-    ms = kernel_ms(lambda: frontend_cuda.frontend(*args))
-    plain = cuda_ms(lambda: frontend.frontend(*args), reps=3)
-    nbytes = kf_bytes(args, gev)
+    ms = kernel_ms(lambda: frontend_cuda.frontend(*args, quals=quals))
+    plain = cuda_ms(lambda: frontend.frontend(*args, quals=quals), reps=3)
+    nbytes = kf_bytes(args, gev, quals)
     bound_ms, by = bound(nbytes, 0)
     over = int((gn > dpk.MAX_EVENTS).sum())
+    n_sub = 0
+    if "err_typ" in gev:
+        E = gev["pos"].shape[1]
+        live = (torch.arange(E, device=gn.device)[None]
+                < gn.clamp(max=E)[:, None])
+        n_sub = int(((gev["err_typ"] == 2) & live).sum())
     log(f"KF {title}: B {gn.shape[0]} x Lp {args[6]}; every output bitwise "
-        f"equal to its twin ({int(gn.sum())} events, {over} reads past "
+        f"equal to its twin ({int(gn.sum())} events, {n_sub} with a "
+        f"substitution record in the rows, {over} reads past "
         f"{dpk.MAX_EVENTS}), K3's genes on KF's rows equal to those on the "
         f"twin's, KF host syncs 0 (sync debug mode error); KF {ms:.4f} ms "
         f"(device, CUDA events), twin {plain:.4f} ms; bound {bound_ms:.4f} "
         f"ms ({nbytes / 1e6:.3f} MB over 3.35 TB/s) [{gpu_line()}]")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": by, "max_abs_err": err, "n_events": int(gn.sum()),
-            "reads_past_max_events": over}
+            "sub_events": n_sub, "reads_past_max_events": over}
 
 
 def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
@@ -910,9 +927,12 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
     """Host-clock stage times (synchronised; each stage runs once untimed
     first, so that none pays for loading its kernels) of one 2,048-read
     chunk, in substitution mode with ``subs`` (``quals``: qualities by
-    header), K3 and its twin (event DP, then traceback) as separate
-    stages; then K3 against its twin on the chunk's rows (``k3_check``)
-    with the f64 and the f32 carry, recorded in K3["cases"]."""
+    header), KF and its twin, K3 and its twin (event DP, then traceback)
+    as separate stages; then K3 against its twin on the chunk's rows
+    (``k3_check``) and KF against its twin on the chunk (``kf_check``)
+    with the f64 and the f32 carry, recorded in K3["cases"] and
+    KF["cases"]; in substitution mode with qualities KF is also held to
+    its twin on the same chunk without them (the "subs" cases)."""
     import numpy as np
     import torch
 
@@ -974,6 +994,8 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
         dev["gene_mip"], dev["gene_probs"], dev["indep_mip"],
         dev["indep_probs"], reads_t, lens, grp, model_len=bank.model_len,
         depth=bank.depth))
+    mode = "subs_quals" if subs and quals else ("subs" if subs
+                                                else "error_free")
     rows, kf_in = {}, {}
     for fdt in (torch.float64, torch.float32):
         c = dict(consts, fdt=fdt)
@@ -981,10 +1003,11 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
         fargs = (reads_t, lens, grp, g6, i6, dev, 768, c, dpk.MAX_EVENTS)
         ev, n_ev = stage("frontend (twin)" + carry,
                          lambda: frontend.frontend(*fargs, quals=q_t))
-        if not subs:
-            stage("frontend (KF)" + carry,
-                  lambda: frontend_cuda.frontend(*fargs))
-            kf_in[fdt] = (fargs, (ev, n_ev))
+        stage("frontend (KF)" + carry,
+              lambda: frontend_cuda.frontend(*fargs, quals=q_t))
+        kf_in[(mode, fdt)] = (fargs, q_t, (ev, n_ev))
+        if q_t is not None:
+            kf_in[("subs", fdt)] = (fargs, None, frontend.frontend(*fargs))
         rows[fdt] = (ev, c, torch.clamp(n_ev, max=dpk.MAX_EVENTS))
     ev, _c, ne = rows[torch.float64]
     stage("event_dp_traceback (K3)", lambda: event_dp_cuda.event_dp_traceback(
@@ -1000,16 +1023,14 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
         + json.dumps({k: round(v, 3) for k, v in times.items()})
         + f"; DP steps {int(ne.max())}, K3 host syncs 0, the twin's event "
         f"DP {syncs}")
-    mode = "subs_quals" if subs and quals else ("subs" if subs
-                                                else "error_free")
     for fdt, (ev, c, ne) in rows.items():
         carry = "f64" if fdt == torch.float64 else "f32"
         K3["cases"][f"{mode}_{carry}"] = k3_check(
             f"{mode} {carry}", ev, dev, grp, c, ne)
-    for fdt, (fargs, want) in kf_in.items():
+    for (kmode, fdt), (fargs, q, want) in kf_in.items():
         carry = "f64" if fdt == torch.float64 else "f32"
-        KF["cases"][f"{mode}_{carry}"] = kf_check(
-            f"{mode} {carry}", fargs, want, dev, grp)
+        KF["cases"][f"{kmode}_{carry}"] = kf_check(
+            f"{kmode} {carry}", fargs, want, dev, grp, quals=q)
 
 
 def predict_blocks(text):
@@ -1620,12 +1641,18 @@ def error_mode_phase(name, gd, reads, cmap, check, **kw):
         cold = time.perf_counter() - t0
     launches, counts = icm_cuda.launches, dict(tmg.counters)
     K3["paths"][name.split()[0]] = event_dp_cuda.launches
-    # KF covers the error-free mode only: the error modes run the plain
-    # frontend (substitution mode) or the native engine (indel mode)
-    assert frontend_cuda.launches == 0, frontend_cuda.launches
+    # substitution mode runs KF on the device route; indel mode runs the
+    # native engine on K1's scores and launches no KF
+    if kw.get("allow_subs"):
+        KF["paths"][name.split()[0]] = frontend_cuda.launches
+        assert frontend_cuda.launches > 0, f"the {name} path did not " \
+                                           "launch KF"
+    else:
+        assert frontend_cuda.launches == 0, frontend_cuda.launches
     genes = [g for _h, gs in out for g in gs]
     log(f"{name} pass 1: {len(out)} reads in {cold:.2f} s; K1 launches "
-        f"{launches}, K3 launches {event_dp_cuda.launches}; routes "
+        f"{launches}, K3 launches {event_dp_cuda.launches}, KF launches "
+        f"{frontend_cuda.launches}; routes "
         f"{counts}; {len(genes)} genes, "
         f"{sum(1 for g in genes if g.errors)} with error records")
     assert launches > 0, f"the {name} path did not launch K1"
@@ -1726,7 +1753,7 @@ def routes_phase(gd, cases, check):
     import torch
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
-    from glimmer_mg_torch.ops import icm_cuda
+    from glimmer_mg_torch.ops import frontend_cuda, icm_cuda
 
     launches = 0
     for name, case in cases.items():
@@ -1760,7 +1787,7 @@ def routes_phase(gd, cases, check):
         assert same, "the native route differs from the device route"
         assert same_host, "the native route differs from the host engine"
 
-        rates = {}
+        rates, kf = {}, 0
         for label, route, ov in (
                 ("native, precompute device", {"engine": "native"}, None),
                 ("native, precompute host",
@@ -1770,6 +1797,7 @@ def routes_phase(gd, cases, check):
                 ("device, overlap on", {}, "1"),
                 ("device, overlap off", {}, "0")):
             tmg.reset_counters()
+            frontend_cuda.reset_launches()
             with overlap(ov):
                 t0 = time.perf_counter()
                 res = list(tmg.run_glimmer_mg_classes(
@@ -1779,7 +1807,12 @@ def routes_phase(gd, cases, check):
             assert tmg.format_predict_mg(res) == want, label
             if route:
                 assert tmg.counters["native_reads"] == len(reads), label
+            else:
+                kf += frontend_cuda.launches
             rates[label] = round(len(reads) / wall, 1)
+        # the device route's passes of this case launch KF in each mode
+        KF["paths"]["routes_" + name.split()[0].replace("-", "_")] = kf
+        assert kf > 0, f"the device route did not launch KF ({name})"
         log(f"{name}: warm reads/s by route (overlap by default "
             f"{'on' if tmg._overlap_engine() else 'off'} with "
             f"{os.cpu_count()} host cores): {json.dumps(rates)}")

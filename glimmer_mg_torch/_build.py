@@ -112,11 +112,12 @@ def lib() -> ctypes.CDLL:
             cdll.gmt_event_dp.restype = i
             ll, d = ctypes.c_longlong, ctypes.c_double
             cdll.gmt_frontend.argtypes = ([p] * 28 + [ll] + [i] * 13
-                                          + [d, d, p])
+                                          + [d, d, i] + [p] * 4 + [d] * 4
+                                          + [p])
             cdll.gmt_frontend.restype = i
-            cdll.gmt_frontend_ws.argtypes = [i, i]
+            cdll.gmt_frontend_ws.argtypes = [i, i, i]
             cdll.gmt_frontend_ws.restype = ll
-            cdll.gmt_frontend_smem_room.argtypes = [i, i]
+            cdll.gmt_frontend_smem_room.argtypes = [i, i, i]
             cdll.gmt_frontend_smem_room.restype = i
             _LIB = cdll
         return _LIB

@@ -1,14 +1,28 @@
-// KF: the error-free frontend of device prediction -- ORF slots, start
-// scoring and event assembly -- of a batch of reads in one launch, on
-// Hopper (sm_90a).
+// KF: the frontend of device prediction -- ORF slots, start scoring and
+// event assembly -- of a batch of reads in one launch, on Hopper (sm_90a),
+// in the error-free and in the substitution mode.
 //
 // Replaces glimmer_mg_tpu/ops/device_predict.py:456-1800 (_read_tables
 // through _assemble_events) as :2617 _frontend_one runs it inside the JAX
 // package's jitted device program (XLA, not Pallas). Its plain PyTorch twin
-// is glimmer_mg_torch/ops/frontend.py::frontend with consts["subs"] false;
-// the kernel matches it bit for bit on every output: the (B, E) event rows
-// (pos, typ, sub, id, score, trunc), the padding rows past a read's events
-// included, and n_events, which counts every valid candidate, also past E.
+// is glimmer_mg_torch/ops/frontend.py::frontend; the kernel matches it bit
+// for bit on every output: the (B, E) event rows (pos, typ, sub, id, score,
+// trunc, and in substitution mode err_pos and err_typ), the padding rows
+// past a read's events included, and n_events, which counts every valid
+// candidate, also past E.
+//
+// The mode is a template parameter (SUBS), so the error-free instantiation
+// compiles as it did before the substitution mode was added; the
+// substitution mode's state (its arrays, slot flags, entries and arguments)
+// lives in types derived from the error-free ones and only that
+// instantiation carries it. Substitution mode adds, a strand, the
+// sub-extension families: a start whose gene runs through its ORF's stop
+// codon, read as a sequencing error at the stop penalty, into the next ORF
+// of the frame (std, one a position; truncated, 3 forward and 6 reverse);
+// ORFs of frame length >= 15 are kept (indel_orfs); each (ORF, error set)
+// gets its own id and stop event; equal positions keep the reference's
+// insertion order (tiekey). Its 8 Lp + 33 candidates are sorted on
+// (pos, tiekey, index), which is the twin's two stable argsorts.
 //
 // What bounds it: not bytes. A 2,048-read chunk at Lp 768 moves about
 // 90 MB (the reads, K1's two (B, 6, Lp) f32 tables, the event rows), 27
@@ -63,10 +77,18 @@
 //    the std score is <= its own.
 //  * Gathers: every clamp and fill value of _gather_guard, _gather2 and the
 //    shifts (0, -inf, BIG, -BIG, -1, false) is spelled out where it is read.
+//  * The stop penalty (_stop_penalty): without qualities the four values
+//    are the host's doubles (math.log), passed in and rounded to the carry
+//    once; with qualities _CP_TAB (passed in) is cast to the carry, the
+//    products go in the twin's order through mul(), 2/3 c + 1/3 is a
+//    product and a separate add, pp is clamped into [tiny, 1 - eps/2], then
+//    log(1 - pp) - log(pp).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -82,6 +104,13 @@ constexpr int NONE = 3;
 constexpr uint8_t RAWOK = 1, PASS = 2, FINAL = 4;
 constexpr int E_FWD_START = 1, E_FWD_STOP = 2, E_REV_START = 3,
               E_REV_STOP = 4;
+// substitution mode: ORFs this long are kept (engine.mg_host
+// MIN_INDEL_ORF_LEN), the error type of a substitution record, and the bits
+// of a slot's gate byte: evprod, its clean stop event, its sub stop event
+constexpr int MIN_INDEL_ORF_LEN = 15, ERR_SUB = 2;
+constexpr uint8_t EVP = 1, CLN = 2, SUBB = 4;
+// the sort key of a substitution-mode candidate: pos, tiekey, index
+constexpr long long TK_SHIFT = 1LL << 22, POS_SHIFT = 1LL << 44;
 
 struct Args {
   const int* seq;     // (B, Lp)
@@ -117,6 +146,15 @@ struct Args {
   double ev_thresh, start_thresh;
 };
 
+// The substitution mode's further arguments.
+struct ArgsS : Args {
+  const uint8_t* quals;  // (B, Lp) or null: the constant penalties
+  const double* cp;      // (256,) _CP_TAB
+  int* o_err_pos;        // (B, E)
+  int* o_err_typ;
+  double pen[4];  // the no-quality penalties, at 2 * mid + last
+};
+
 __host__ __device__ inline size_t a16(size_t x) {
   return (x + 15) & ~size_t(15);
 }
@@ -138,7 +176,16 @@ struct Layout {
   int lev_n[MAXLEV], lev_off[MAXLEV];
 };
 
-__host__ __device__ inline Layout make_layout(int Lp, int sz) {
+// Bytes of the substitution mode's own arrays, which follow idR: the sub
+// std scores of each strand (S, Lp), their candidate bits (Lp) and the sub
+// ids of each strand's slots (int, Lp + 3).
+__host__ __device__ inline size_t subs_bytes(int Lp, int sz) {
+  const size_t lp = (size_t)Lp, ls = lp + 3;
+  return 2 * a16(sz * lp) + 2 * a16(lp) + 2 * a16(4 * ls);
+}
+
+__host__ __device__ inline Layout make_layout(int Lp, int sz,
+                                              bool subs = false) {
   Layout L;
   // _blocked_cumsum's levels: level 0 (Lp entries) always blocked; level l
   // holds the block totals of level l - 1 and is blocked while > 16
@@ -181,8 +228,10 @@ __host__ __device__ inline Layout make_layout(int Lp, int sz) {
   o += a16(4 * ls);
   L.idR = o;
   o += a16(4 * ls);
+  if (subs) o += subs_bytes(Lp, sz);
   // temp region: R, Rr and the prefix rows (then the RBS window scores over
-  // the rows); then the four class cumsums; then the sort keys
+  // the rows); then the four (substitution mode: eight) class cumsums; then
+  // the sort keys
   const size_t tmp = o;
   L.R = tmp;
   L.Rr = tmp + a16(sz * lp);
@@ -193,8 +242,8 @@ __host__ __device__ inline Layout make_layout(int Lp, int sz) {
                      maxz(a16(sz * 3 * (size_t)L.rowlen), 2 * a16(sz * lp));
   L.F = tmp;
   L.keys = tmp;
-  const size_t ph2 = 4 * a16(4 * lp);
-  const size_t ph3 = a16(8 * (4 * lp + 18));
+  const size_t ph2 = (subs ? 8 : 4) * a16(4 * lp);
+  const size_t ph3 = a16(8 * (subs ? 8 * lp + 33 : 4 * lp + 18));
   L.total = tmp + maxz(ph1, maxz(ph2, ph3));
   return L;
 }
@@ -324,6 +373,20 @@ struct Rd {
   const float* slo;    // (NS,)
 };
 
+// The substitution mode's further state of a read.
+template <typename S>
+struct RdS : Rd<S> {
+  S *scoreSF, *scoreSR;  // sub std scores
+  uint8_t *cfSF, *cfSR;  // their RAWOK / PASS / FINAL bits
+  int *idSF, *idSR;      // sub ids of the slots
+  const int* seq;        // (Lp,) the read
+  const uint8_t* q;      // (Lp,) its qualities, or null
+  const double* cp;      // _CP_TAB
+  S pen[4];              // the no-quality penalties in the carry's type
+  S two3, one3;
+  int lowest_j;
+};
+
 // fwd_prev: the Save_Prev_Stops register (max of the class's initial value
 // and the previous fwd stop).
 template <typename S>
@@ -364,8 +427,8 @@ struct Slot {
   bool emit, trunc, t3;
 };
 
-// Forward-ORF slot s in [0, Lp + 3) (_fwd_orf_slots, indel_orfs=False).
-template <typename S>
+// Forward-ORF slot s in [0, Lp + 3) (_fwd_orf_slots, indel_orfs=SUBS).
+template <bool SUBS, typename S>
 __device__ Slot fwd_slot(const Rd<S>& r, int s) {
   const int Lp = r.Lp, n = r.n;
   Slot o;
@@ -397,7 +460,7 @@ __device__ Slot fwd_slot(const Rd<S>& r, int s) {
   int gl = sstar < o.iS ? o.iS - sstar : 0;
   const int ol = hp ? o.iS - ip - 3 : (o.iS - 2) - pmod3(o.iS - 2);
   if (!hp && gl < r.mgl) gl = ol;
-  o.emit = exists && gl >= r.mgl;
+  o.emit = exists && (gl >= r.mgl || (SUBS && ol >= MIN_INDEL_ORF_LEN));
   o.hi = o.iS - 2;
   o.mm = o.hi - o.lo;
   o.top = topj(o.mm);
@@ -405,8 +468,8 @@ __device__ Slot fwd_slot(const Rd<S>& r, int s) {
   return o;
 }
 
-// Reverse-ORF slot s in [0, Lp + 3) (_rev_orf_slots, indel_orfs=False).
-template <typename S>
+// Reverse-ORF slot s in [0, Lp + 3) (_rev_orf_slots, indel_orfs=SUBS).
+template <bool SUBS, typename S>
 __device__ Slot rev_slot(const Rd<S>& r, int s) {
   const int Lp = r.Lp, n = r.n;
   Slot o;
@@ -429,12 +492,16 @@ __device__ Slot rev_slot(const Rd<S>& r, int s) {
   const int orf_stop = hp ? ip - 1 : vstop(c);
   const bool ls_ok = ls > (hp ? ip : -BIG) && ls > -HALF;
   int gl = ls_ok ? (ls - 1) - orf_stop : 0;
+  bool indel_keep = false;
   if (virt) {
     int eol = n - orf_stop - 2;
     eol -= pmod3(eol);
     if (gl < r.mgl) gl = eol;
+    if (SUBS) indel_keep = eol >= MIN_INDEL_ORF_LEN;
+  } else if (SUBS) {
+    indel_keep = s - orf_stop - 4 >= MIN_INDEL_ORF_LEN;
   }
-  o.emit = exists && gl >= r.mgl;
+  o.emit = exists && (gl >= r.mgl || indel_keep);
   const int x_ep = orf_stop + 2;
   const int rnv = hp ? ffv : r.rnc[c];
   o.hi = ((x_ep >= 0 && x_ep < n) ? rnv : x_ep) + 1;
@@ -456,6 +523,89 @@ template <typename S>
 __device__ inline int slot_mr(const Rd<S>& r, int u) {
   const int nx = u + 3 < r.Lp ? r.nsr[u + 3] : BIG;
   return nx < HALF ? nx : r.Lp + u % 3;
+}
+
+// ---- substitution mode: the next / previous slot reads ----
+
+// The forward slot after position x in its frame (nxt's slot): the next
+// stop of x's class past x, else the virtual slot of x's class.
+template <typename S>
+__device__ inline int next_f(const Rd<S>& r, int x) {
+  const int nx = x + 3 < r.Lp ? r.nsf[x + 3] : BIG;
+  return nx < BIG ? nx : r.Lp + pmod3(x - r.n);
+}
+// mm2: the suffix length at a forward stop x (to the next slot's stop).
+template <typename S>
+__device__ inline int mm2_f(const Rd<S>& r, int x) {
+  const int nx = x + 3 < r.Lp ? r.nsf[x + 3] : BIG;
+  return (nx < BIG ? nx : r.n + pmod3(x - r.n)) - x - 3;
+}
+// A_ext at a forward slot: the class diagonal at hi(s) - 1.
+template <typename S>
+__device__ inline S a_slot(const Rd<S>& r, int s) {
+  if (s < r.Lp) return s >= 3 ? r.R[s - 3] : (S)0;
+  const int xv = r.n + (s - r.Lp) - 3;
+  return (xv >= 0 && xv < r.Lp) ? r.R[xv] : (S)0;
+}
+// The previous forward stop of slot s (the ORF's ip), or -BIG.
+template <typename S>
+__device__ inline int prev_f(const Rd<S>& r, int s) {
+  if (s < r.Lp) return s >= 3 ? r.psf[s - 3] : -BIG;
+  return r.psf[r.Lp - 3 + pmod3(r.n + s - r.Lp)];
+}
+// The tie key of a slot's events (4 x the slot's rank key of _assign_ids).
+template <typename S>
+__device__ inline int k4_f(const Rd<S>& r, int s) {
+  return 4 * (s < r.Lp ? 2 * s + 1 : 2 * r.Lp + 8 + (s - r.Lp));
+}
+template <typename S>
+__device__ inline int k4_r(const Rd<S>& r, int s) {
+  return 4 * (s < r.Lp ? 2 * s : 2 * r.Lp + 4 + (s - r.Lp));
+}
+
+__device__ inline double pp_lo(double) { return 0x1p-1022; }
+__device__ inline float pp_lo(float) { return 0x1p-126f; }
+__device__ inline double pp_hi(double) { return 1.0 - 0x1p-53; }
+__device__ inline float pp_hi(float) { return 1.0f - 0x1p-24f; }
+
+// Pass_Stop_Penalty of a stop codon read through as a substitution, whose
+// last base (in the read) is x (_stop_penalty). mid / last: the codon's
+// middle / last base in the gene's direction is the one the reference
+// weighs up.
+template <typename S>
+__device__ S stop_pen(const RdS<S>& r, int x, bool mid, bool last, bool fwd) {
+  if (!r.q) return r.pen[2 * mid + last];
+  auto cp = [&](int y) { return (S)r.cp[r.q[y]]; };
+  const S c = cp(x);
+  const S c1 = x >= 1 ? cp(x - 1) : (S)0.5;
+  const S c0 = x >= 2 ? cp(x - 2) : (S)0.5;
+  auto fa = [&](bool is, S v) { return is ? mul(r.two3, v) + r.one3 : v; };
+  S pp = fwd ? mul(mul(c0, fa(mid, c1)), fa(last, c))
+             : mul(mul(c, fa(mid, c1)), fa(last, c0));
+  const S lo = pp_lo(pp), hi = pp_hi(pp);
+  pp = pp < lo ? lo : (pp > hi ? hi : pp);
+  return lg((S)1 - pp) - lg(pp);
+}
+
+// suf_pos at a forward stop x: the penalty plus the next slot's segment.
+template <typename S>
+__device__ S suf_f(const RdS<S>& r, int x) {
+  const bool mid = x >= 1 && r.seq[x - 1] == 0, last = r.seq[x] == 0;
+  return stop_pen(r, x, mid, last, true) + (a_slot(r, next_f(r, x)) - r.R[x]);
+}
+// suf_pos at a reverse stop x: the penalty plus the segment of the ORF it
+// closes.
+template <typename S>
+__device__ S suf_r(const RdS<S>& r, int x) {
+  const S a = x >= 3 ? r.Rr[x - 3] : (S)0;
+  S b = (S)0;
+  if (x >= 3) {
+    const int y = x - 3, p = r.psr[y], c = y % 3;
+    b = p > -HALF ? r.Rr[p] : (c == 0 ? r.Rr[0] : (c == 1 ? r.Rr[1] : (S)0));
+  }
+  const bool mid = x >= 1 && r.seq[x - 1] == 3;
+  const bool last = x >= 2 && r.seq[x - 2] == 3;
+  return stop_pen(r, x, mid, last, false) + (a - b);
 }
 
 // Best RBS window of a start at 0-based p (_pwm_window_tables + fix).
@@ -536,6 +686,16 @@ struct Tr {  // the 6 + 6 truncated-start entries, in shared memory
   S score[12];
 };
 
+// The substitution mode's truncated sub entries: 0-2 extend the forward
+// entries 0-2 (a class chain's first ORF), 3-8 the reverse entries 6-11.
+// s2 is the slot whose ORF a sub entry extends, ok its s2slot6_valid.
+template <typename S>
+struct TrS : Tr<S> {
+  int s2[9], epos[9];
+  uint8_t ok[9], sfin[9], sraw[9], skill[9];
+  S sscore[9];
+};
+
 template <typename S>
 __device__ Item<S> item(const Rd<S>& r, const Tr<S>& tr, int idx) {
   const int Lp = r.Lp;
@@ -613,6 +773,155 @@ __device__ Item<S> item(const Rd<S>& r, const Tr<S>& tr, int idx) {
   it.sub = 3 + (c + 1) % 3;
   it.id = r.idR[s];
   return it;
+}
+
+// A candidate of the substitution mode's concatenation, with its error
+// record and tie key.
+template <typename S>
+struct ItemS : Item<S> {
+  int err_pos, err_typ, tk;
+};
+
+// Candidate idx of the substitution mode's concatenation: std_f, tr_f,
+// sub_std_f, sub_tr_f, stop_f, sub_stop_f, sub_std_r, sub_tr_r, std_r,
+// tr_r, stop_r, sub_stop_r. The clean starts are item()'s (a slot's gate
+// byte is nonzero exactly when evprod is set); the clean stops are gated on
+// CLN, the sub stops on SUBB. Forward ties go starts (phase 1) then stops
+// (clean 2, sub 3); reverse stops (clean 0, sub 1) then starts (2).
+template <typename S>
+__device__ ItemS<S> item_s(const RdS<S>& r, const TrS<S>& tr, int idx) {
+  const int Lp = r.Lp;
+  const int EF = 2 * Lp + 9;  // item()'s offset of the reverse families
+  ItemS<S> it;
+  it.err_pos = -1;
+  it.err_typ = -1;
+  auto clean = [&](int i, int tk) {
+    static_cast<Item<S>&>(it) = item(r, tr, i);
+    it.tk = tk;
+  };
+  // a sub stop: the clean stop event i of item()'s order with its own
+  // gate, id and error record
+  auto sub_stop = [&](int i, int tk, bool valid, int id, int err_pos) {
+    clean(i, tk);
+    it.valid = valid;
+    it.id = id;
+    it.err_pos = err_pos;
+    it.err_typ = ERR_SUB;
+  };
+  auto sub_ev = [&](int pos, int typ, int sub, int id, S score, bool trunc,
+                    bool valid, int err_pos, int tk) {
+    it.pos = pos;
+    it.typ = typ;
+    it.sub = sub;
+    it.id = id;
+    it.score = score;
+    it.trunc = trunc;
+    it.valid = valid;
+    it.err_pos = err_pos;
+    it.err_typ = ERR_SUB;
+    it.tk = tk;
+  };
+  if (idx < Lp) {  // std_f
+    clean(idx, k4_f(r, slot_mf(r, idx)) + 1);
+    return it;
+  }
+  idx -= Lp;
+  if (idx < 6) {  // tr_f
+    clean(Lp + idx, k4_f(r, tr.slotc[idx]) + 1);
+    return it;
+  }
+  idx -= 6;
+  if (idx < Lp) {  // sub_std_f: ids and gates of the slot after the stop
+    const int q = idx;
+    const int s1 = q + 5 < Lp ? r.nsf[q + 5] : BIG;
+    const bool has = s1 < BIG;
+    const int s2 = has ? next_f(r, s1) : 0;
+    const int ivirt = r.n + pmod3(q + 2 - r.n);
+    sub_ev(q + 3, E_FWD_START, q % 3, has ? r.idSF[s2] : 0, r.scoreSF[q],
+           false, (r.cfSF[q] & FINAL) && has && (r.evF[s2] & EVP),
+           (s1 < ivirt ? s1 : ivirt) - 1, (has ? k4_f(r, s2) : 0) + 1);
+    return it;
+  }
+  idx -= Lp;
+  if (idx < 3) {  // sub_tr_f
+    const int s2 = tr.s2[idx];
+    sub_ev(tr.pos[idx], E_FWD_START, tr.sub[idx], r.idSF[s2],
+           tr.sscore[idx], true,
+           tr.sfin[idx] && tr.ok[idx] && (r.evF[s2] & EVP), tr.epos[idx],
+           k4_f(r, s2) + 1);
+    return it;
+  }
+  idx -= 3;
+  if (idx < Lp + 3) {  // stop_f
+    clean(Lp + 6 + idx, k4_f(r, idx) + 2);
+    it.valid = (r.evF[idx] & CLN) != 0;
+    return it;
+  }
+  idx -= Lp + 3;
+  if (idx < Lp + 3) {  // sub_stop_f: the error is at the ORF's previous stop
+    const int s = idx, ip = prev_f(r, s);
+    sub_stop(Lp + 6 + s, k4_f(r, s) + 3, (r.evF[s] & SUBB) != 0, r.idSF[s],
+             (ip > -HALF ? ip : 0) - 1);
+    return it;
+  }
+  idx -= Lp + 3;
+  if (idx < Lp) {  // sub_std_r: ids and gates of the ORF before u's
+    const int u = idx, p = r.psr[u];
+    const bool hp = p > -HALF;
+    sub_ev(u + 1, E_REV_START, 3 + (u % 3 + 1) % 3, hp ? r.idSR[p] : 0,
+           r.scoreSR[u], false, (r.cfSR[u] & FINAL) && hp && (r.evR[p] & EVP),
+           p + 1, (hp ? k4_r(r, p) : 0) + 2);
+    return it;
+  }
+  idx -= Lp;
+  if (idx < 6) {  // sub_tr_r
+    const int e = 3 + idx, s2 = tr.s2[e];
+    sub_ev(tr.pos[6 + idx], E_REV_START, tr.sub[6 + idx], r.idSR[s2],
+           tr.sscore[e], true, tr.sfin[e] && tr.ok[e] && (r.evR[s2] & EVP),
+           tr.epos[e], k4_r(r, s2) + 2);
+    return it;
+  }
+  idx -= 6;
+  if (idx < Lp) {  // std_r
+    clean(EF + idx, k4_r(r, slot_mr(r, idx)) + 2);
+    return it;
+  }
+  idx -= Lp;
+  if (idx < 6) {  // tr_r
+    clean(EF + Lp + idx, k4_r(r, tr.slotc[6 + idx]) + 2);
+    return it;
+  }
+  idx -= 6;
+  if (idx < Lp + 3) {  // stop_r
+    clean(EF + Lp + 6 + idx, k4_r(r, idx));
+    it.valid = (r.evR[idx] & CLN) != 0;
+    return it;
+  }
+  idx -= Lp + 3;  // sub_stop_r: the error is at the closing stop
+  sub_stop(EF + Lp + 6 + idx, k4_r(r, idx) + 1, (r.evR[idx] & SUBB) != 0,
+           r.idSR[idx], idx + 1);
+  return it;
+}
+
+// Sorts keys[0, nv) ascending in place: a bitonic network (all comparators
+// ascending, the first step of each merge reflected), in which entries past
+// nv act as +inf and never move. Every thread of the block calls it.
+__device__ __forceinline__ void sort_keys(long long* keys, int nv) {
+  for (int k = 2; k < 2 * nv; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < nv; i += T) {
+        const int p = j == (k >> 1) ? (i ^ (k - 1)) : (i ^ j);
+        if (p > i && p < nv) {
+          const long long x = keys[i], y = keys[p];
+          if (y < x) {
+            keys[i] = y;
+            keys[p] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 // A forward seg_exists at slot x: some candidate of the ORF's run in F.
@@ -718,20 +1027,21 @@ __device__ void prefix_diag(const Args& a, const Layout& L, const Rd<S>& r,
   __syncthreads();
 }
 
-template <typename S, bool RBS>
-__global__ void __launch_bounds__(T) frontend_kernel(Args a) {
+template <typename S, bool RBS, bool SUBS>
+__global__ void __launch_bounds__(T)
+    frontend_kernel(typename std::conditional<SUBS, ArgsS, Args>::type a) {
   extern __shared__ __align__(16) unsigned char dsm[];
   __shared__ int sbuf[2 * T * 3];
-  __shared__ Tr<S> tr;
+  __shared__ typename std::conditional<SUBS, TrS<S>, Tr<S>>::type tr;
 
-  const int Lp = a.Lp, ncol = Lp / 3, N = 4 * Lp + 18;
+  const int Lp = a.Lp, ncol = Lp / 3, N = SUBS ? 8 * Lp + 33 : 4 * Lp + 18;
   const int Eo = a.E < N ? a.E : N;
-  const Layout L = make_layout(Lp, (int)sizeof(S));
+  const Layout L = make_layout(Lp, (int)sizeof(S), SUBS);
   unsigned char* ws =
       a.scratch ? a.scratch + (size_t)blockIdx.x * (size_t)a.ws_bytes : dsm;
   const int tid = threadIdx.x;
 
-  Rd<S> r;
+  typename std::conditional<SUBS, RdS<S>, Rd<S>>::type r;
   r.fl = ws + L.fl;
   r.psf = (int*)(ws + L.psf);
   r.nsf = (int*)(ws + L.nsf);
@@ -765,6 +1075,21 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
   r.rbw = a.rbw;
   r.ev = (S)a.ev_thresh;
   r.th = (S)a.start_thresh;
+  if constexpr (SUBS) {
+    const size_t lp = (size_t)Lp, sz = sizeof(S), o = L.idR + a16(4 * (lp + 3));
+    r.scoreSF = (S*)(ws + o);
+    r.scoreSR = (S*)(ws + o + a16(sz * lp));
+    r.cfSF = ws + o + 2 * a16(sz * lp);
+    r.cfSR = ws + o + 2 * a16(sz * lp) + a16(lp);
+    r.idSF = (int*)(ws + o + 2 * a16(sz * lp) + 2 * a16(lp));
+    r.idSR = (int*)(ws + o + 2 * a16(sz * lp) + 2 * a16(lp) + a16(4 * (lp + 3)));
+    r.cp = a.cp;
+    for (int k = 0; k < 4; ++k) r.pen[k] = (S)a.pen[k];
+    r.two3 = (S)(2.0 / 3.0);
+    r.one3 = (S)(1.0 / 3.0);
+    const int m3 = a.mgl - 3;
+    r.lowest_j = 3 < m3 ? 3 : m3;
+  }
 
   for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
     const int n = a.n[b];
@@ -778,6 +1103,10 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
     r.is_user = a.pwm_is_user[gi] != 0;
     r.any_mode = r.is_user || r.nm > 0;
     const int* seq = a.seq + (size_t)b * Lp;
+    if constexpr (SUBS) {
+      r.seq = seq;
+      r.q = a.quals ? a.quals + (size_t)b * Lp : nullptr;
+    }
 
     // ---- codon flags (_read_tables) ----
     for (int i = tid; i < Lp; i += T) {
@@ -883,7 +1212,7 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
         const int ivirt = n + vcls;
         const int iS = i_next < ivirt ? i_next : ivirt;
         const int sl = i_next < BIG ? i_next : Lp + vcls;
-        const bool emit = fwd_slot(r, sl).emit;
+        const bool emit = fwd_slot<SUBS>(r, sl).emit;
         const bool is_real = iS < n;
         const int hi = iS - 2;
         int lo;
@@ -918,6 +1247,33 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
         r.scoreF[q] = score;
         r.cfF[q] = (uint8_t)((valid && raw > r.th ? RAWOK : 0) |
                              (valid && score > r.ev ? PASS : 0));
+        if constexpr (SUBS) {
+          // the sub-extension: the gene runs through q's closing stop s1
+          // into the next slot's run (the suffix terms read at s1)
+          int sj = 0;
+          bool em2 = false, t32 = false;
+          S suf = (S)0;
+          if (i_next < BIG) {
+            const int s2 = next_f(r, i_next);
+            sj = mm2_f(r, i_next);
+            em2 = fwd_slot<true>(r, s2).emit;
+            t32 = s2 >= Lp;
+            suf = suf_f(r, i_next);
+          }
+          const int mjs = r.mgl - 3 - sj > r.lowest_j ? r.mgl - 3 - sj
+                                                       : r.lowest_j;
+          const int jf = j + 2 + sj;
+          const bool sv = is_real && em2 && q >= lo && j >= mjs && j <= top &&
+                          hit2 && 1 + jf >= r.mgl;
+          S rt = raw_nb + suf;
+          if (jf > r.isl) rt = clamp0(rt);
+          const S ss = score_tail<S, RBS>(
+              r, rt, pwm, sep, t32 ? 1 : 0,
+              clampi(fdiv3(j + sj) + 1, 0, r.LN - 1), wc);
+          r.scoreSF[q] = ss;
+          r.cfSF[q] = (uint8_t)((sv && rt > r.th ? RAWOK : 0) |
+                                (sv && ss > r.ev ? PASS : 0));
+        }
       }
       // reverse: u = q is the start codon's last base
       {
@@ -925,7 +1281,7 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
         const int i_close = u + 3 < Lp ? r.nsr[u + 3] : BIG;
         const bool is_real = i_close < HALF;
         const int sl = is_real ? i_close : Lp + c;
-        const bool emit = rev_slot(r, sl).emit;
+        const bool emit = rev_slot<SUBS>(r, sl).emit;
         const int ip = r.psr[u];
         const bool hp = ip > -HALF;
         const int orf_stop = hp ? ip - 1 : vstop(c);
@@ -955,6 +1311,33 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
         r.scoreR[u] = score;
         r.cfR[u] = (uint8_t)((valid && raw > r.th ? RAWOK : 0) |
                              (valid && score > r.ev ? PASS : 0));
+        if constexpr (SUBS) {
+          // the sub-extension: the ORF s2 before u's (closing stop ip)
+          // extends right through ip into u's run
+          int sj = 0;
+          bool em2 = false, t32 = false;
+          S suf = (S)0;
+          if (hp) {
+            const Slot o2 = rev_slot<true>(r, ip);
+            em2 = o2.emit;
+            sj = o2.mm;
+            t32 = o2.t3;
+            suf = suf_r(r, ip);
+          }
+          const int mjs = r.mgl - 3 - sj > r.lowest_j ? r.mgl - 3 - sj
+                                                       : r.lowest_j;
+          const int jf = j + 2 + sj;
+          const bool sv = hp && em2 && (r.fl[u] & RS) && j >= mjs &&
+                          j <= top && u <= hi - 2 && 1 + jf >= r.mgl;
+          S rt = raw_nb + suf;
+          if (jf > r.isl) rt = clamp0(rt);
+          const S ss = score_tail<S, RBS>(
+              r, rt, pwm, sep, t32 ? 1 : 0,
+              clampi(fdiv3(j + sj) + 1, 0, r.LN - 1), wc);
+          r.scoreSR[u] = ss;
+          r.cfSR[u] = (uint8_t)((sv && rt > r.th ? RAWOK : 0) |
+                                (sv && ss > r.ev ? PASS : 0));
+        }
       }
     }
     __syncthreads();
@@ -980,7 +1363,7 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
         v6 = true;
       }
       const int sc = clampi(slot6, 0, Lp + 2);
-      const Slot sl = fwd ? fwd_slot(r, sc) : rev_slot(r, sc);
+      const Slot sl = fwd ? fwd_slot<SUBS>(r, sc) : rev_slot<SUBS>(r, sc);
       const bool tv = sl.emit && v6 && sl.trunc && sl.mm >= 1 &&
                       sl.top >= r.min_j;
       const S* D = fwd ? r.R : r.Rr;
@@ -1026,6 +1409,66 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
       tr.kill[tid] = tp && (ss <= st);
       tr.raw[tid] = tv && raw > r.th;
       tr.score[tid] = st;
+      if constexpr (SUBS) {
+        // the truncated sub entries: forward the first ORF of each class
+        // chain extended into its next slot (s2slot6); reverse each
+        // truncated ORF extended from its previous slot
+        if (!fwd || k < 3) {
+          const int e = fwd ? k : 3 + k;
+          int s2, sj, epos;
+          bool ok, em2, t32;
+          S suf;
+          if (fwd) {
+            const int fs = r.nsf[k] < Lp - 1 ? r.nsf[k] : Lp - 1;
+            s2 = next_f(r, fs);
+            ok = v6;
+            sj = mm2_f(r, fs);
+            em2 = fwd_slot<true>(r, s2).emit;
+            t32 = s2 >= Lp;
+            suf = suf_f(r, fs);
+            epos = v6 ? r.nsf[k] - 1 : -1;
+          } else {
+            const int ls = r.psr[Lp - 3 + (k < 3 ? k : k - 3)];
+            if (k < 3) {
+              const int x = clampi(ls, 0, Lp - 1) - 3;
+              const int pp3 = x >= 0 ? r.psr[x] : -BIG;
+              ok = ls > -HALF && pp3 > -HALF;
+              s2 = ok ? pp3 : 0;
+            } else {
+              ok = ls > -HALF;
+              s2 = ok ? ls : 0;
+            }
+            const Slot o2 = rev_slot<true>(r, s2);
+            em2 = o2.emit && ok;
+            sj = o2.mm;
+            t32 = o2.t3;
+            suf = suf_r(r, s2);
+            epos = ok ? s2 + 1 : -1;
+          }
+          const int mjs = r.mgl - 3 - sj > r.lowest_j ? r.mgl - 3 - sj
+                                                       : r.lowest_j;
+          const int jf = sl.top + 2 + sj;
+          const bool sv = ok && em2 && sl.trunc && sl.mm >= 1 &&
+                          sl.top >= mjs && 1 + jf >= r.mgl;
+          S r6 = raw_nb + suf;
+          if (jf > r.isl) r6 = clamp0(r6);
+          const S s6 = score_tail<S, RBS>(
+              r, r6, pwm, sep, t32 ? 2 : 1,
+              clampi(fdiv3(sl.top + sj) + 1, 0, r.LN - 1), NONE);
+          const bool sp = sv && s6 > r.ev;
+          const uint8_t* scf = fwd ? r.cfSF : r.cfSR;
+          const S* sss = fwd ? r.scoreSF : r.scoreSR;
+          const bool sat = inr && (scf[qt] & PASS);
+          const S ssc = inr ? sss[qt] : neg_inf<S>();
+          tr.s2[e] = s2;
+          tr.epos[e] = epos;
+          tr.ok[e] = ok;
+          tr.sfin[e] = sp && !(sat && ssc > s6);
+          tr.skill[e] = sp && (ssc <= s6);
+          tr.sraw[e] = sv && r6 > r.th;
+          tr.sscore[e] = s6;
+        }
+      }
     }
     __syncthreads();
 
@@ -1038,6 +1481,14 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
       }
       if ((r.cfF[q] & PASS) && !kf) r.cfF[q] |= FINAL;
       if ((r.cfR[q] & PASS) && !kr) r.cfR[q] |= FINAL;
+      if constexpr (SUBS) {
+        bool sf = false, sr = false;
+        for (int k = 0; k < 3; ++k) sf = sf || (q == tr.q[k] && tr.skill[k]);
+        for (int k = 0; k < 6; ++k)
+          sr = sr || (q == tr.q[6 + k] && tr.skill[3 + k]);
+        if ((r.cfSF[q] & PASS) && !sf) r.cfSF[q] |= FINAL;
+        if ((r.cfSR[q] & PASS) && !sr) r.cfSR[q] |= FINAL;
+      }
     }
     __syncthreads();
 
@@ -1055,126 +1506,255 @@ __global__ void __launch_bounds__(T) frontend_kernel(Args a) {
                  sbuf);
       class_scan(ncol, false, AddOp(), 0, ind(cfR, FINAL), to(F + 3 * Lp),
                  sbuf);
+      if constexpr (SUBS) {
+        uint8_t *sf = r.cfSF, *sr = r.cfSR;
+        class_scan(ncol, false, AddOp(), 0, ind(sf, RAWOK), to(F + 4 * Lp),
+                   sbuf);
+        class_scan(ncol, false, AddOp(), 0, ind(sf, FINAL), to(F + 5 * Lp),
+                   sbuf);
+        class_scan(ncol, false, AddOp(), 0, ind(sr, RAWOK), to(F + 6 * Lp),
+                   sbuf);
+        class_scan(ncol, false, AddOp(), 0, ind(sr, FINAL), to(F + 7 * Lp),
+                   sbuf);
+      }
     }
 
-    // ---- the per-slot event gate (evprod) ----
-    for (int x = tid; x < Lp + 3; x += T) {
-      bool fr6 = false, fa6 = false, rr6 = false, ra6 = false;
-      for (int k = 0; k < 6; ++k) {
-        if (x == tr.slot[k]) {
-          fr6 = fr6 || tr.raw[k];
-          fa6 = fa6 || tr.fin[k];
-        }
-        if (x == tr.slot[6 + k]) {
-          rr6 = rr6 || tr.raw[6 + k];
-          ra6 = ra6 || tr.fin[6 + k];
-        }
-      }
-      const bool ef = fwd_slot(r, x).emit &&
-                      (seg_f(r, r.F, x) || fr6) &&
-                      (seg_f(r, r.F + Lp, x) || fa6);
-      const bool er = rev_slot(r, x).emit &&
-                      (seg_r(r, r.F + 2 * Lp, x) || rr6) &&
-                      (seg_r(r, r.F + 3 * Lp, x) || ra6);
-      r.evF[x] = ef;
-      r.evR[x] = er;
-    }
-    __syncthreads();
-
-    // ---- event-set ids (_assign_ids): ranks in the order rev s, fwd s
-    // (s ascending), the 3 rev end slots, the 3 fwd end slots ----
-    {
-      int c0, c1;
-      my_cols(ncol, c0, c1);
-      int v[1] = {0}, ex[1], tot[1];
-      for (int s = 3 * c0; s < 3 * c1; ++s) v[0] += r.evR[s] + r.evF[s];
-      block_scan<1>(v, ex, tot, false, AddOp(), 0, sbuf);
-      int run = ex[0];
-      for (int s = 3 * c0; s < 3 * c1; ++s) {
-        run += r.evR[s];
-        r.idR[s] = run;
-        run += r.evF[s];
-        r.idF[s] = run;
-      }
-      if (tid == 0) {
-        int acc = tot[0];
-        for (int k = 0; k < 3; ++k) {
-          acc += r.evR[Lp + k];
-          r.idR[Lp + k] = acc;
-        }
-        for (int k = 0; k < 3; ++k) {
-          acc += r.evF[Lp + k];
-          r.idF[Lp + k] = acc;
-        }
-      }
-      __syncthreads();
-    }
-
-    // ---- event assembly: compact, sort on (pos, index), write ----
-    {
-      const int KN = cdiv(N, T);
-      const int i0 = min(tid * KN, N), i1 = min(i0 + KN, N);
-      int v[1] = {0}, ex[1], tot[1];
-      for (int i = i0; i < i1; ++i) v[0] += item(r, tr, i).valid;
-      block_scan<1>(v, ex, tot, false, AddOp(), 0, sbuf);
-      const int nv = tot[0];
-      const size_t ob = (size_t)b * Eo;
-      S* o_score = (S*)a.o_score;
-      int vp = ex[0];
-      for (int i = i0; i < i1; ++i) {
-        const Item<S> it = item(r, tr, i);
-        if (it.valid) {
-          r.keys[vp++] = (long long)it.pos * 4294967296LL + i;
-        } else {
-          const int row = nv + (i - vp);
-          if (row < Eo) {
-            a.o_pos[ob + row] = it.pos;
-            a.o_typ[ob + row] = 0;
-            a.o_sub[ob + row] = it.sub;
-            a.o_id[ob + row] = it.id;
-            o_score[ob + row] = it.score;
-            a.o_trunc[ob + row] = it.trunc;
+    if constexpr (SUBS) {
+      // ---- the per-slot event gates: evprod, and its clean and sub stop
+      // events; a slot's sub set is counted over the run it extends into
+      // (forward: its previous stop's run; reverse: the next slot's) ----
+      for (int x = tid; x < Lp + 3; x += T) {
+        bool fr6 = false, fa6 = false, rr6 = false, ra6 = false;
+        for (int k = 0; k < 6; ++k) {
+          if (x == tr.slot[k]) {
+            fr6 = fr6 || tr.raw[k];
+            fa6 = fa6 || tr.fin[k];
+          }
+          if (x == tr.slot[6 + k]) {
+            rr6 = rr6 || tr.raw[6 + k];
+            ra6 = ra6 || tr.fin[6 + k];
           }
         }
+        bool fs6 = false, fsa6 = false, rs6 = false, rsa6 = false;
+        for (int k = 0; k < 9; ++k) {
+          if (!tr.ok[k] || x != tr.s2[k]) continue;
+          if (k < 3) {
+            fs6 = fs6 || tr.sraw[k];
+            fsa6 = fsa6 || tr.sfin[k];
+          } else {
+            rs6 = rs6 || tr.sraw[k];
+            rsa6 = rsa6 || tr.sfin[k];
+          }
+        }
+        const int ip = prev_f(r, x);
+        const bool exf = (ip > -HALF && seg_f(r, r.F + 4 * Lp, ip)) || fs6;
+        const bool anf = (ip > -HALF && seg_f(r, r.F + 5 * Lp, ip)) || fsa6;
+        const bool clf = seg_f(r, r.F + Lp, x) || fa6;
+        const bool ef = fwd_slot<true>(r, x).emit &&
+                        (seg_f(r, r.F, x) || fr6 || exf) && (clf || anf);
+        const int nx = x < Lp ? slot_mr(r, x) : -1;
+        const bool exr = (nx >= 0 && seg_r(r, r.F + 6 * Lp, nx)) || rs6;
+        const bool anr = (nx >= 0 && seg_r(r, r.F + 7 * Lp, nx)) || rsa6;
+        const bool clr = seg_r(r, r.F + 3 * Lp, x) || ra6;
+        const bool er = rev_slot<true>(r, x).emit &&
+                        (seg_r(r, r.F + 2 * Lp, x) || rr6 || exr) &&
+                        (clr || anr);
+        r.evF[x] = (uint8_t)((ef ? EVP : 0) | (ef && clf ? CLN : 0) |
+                             (ef && anf ? SUBB : 0));
+        r.evR[x] = (uint8_t)((er ? EVP : 0) | (er && clr ? CLN : 0) |
+                             (er && anr ? SUBB : 0));
       }
-      if (tid == 0) a.o_nev[b] = nv;
       __syncthreads();
-      // bitonic network (all comparators ascending, the first step of each
-      // merge reflected): entries past nv act as +inf and never move
-      for (int k = 2; k < 2 * nv; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-          for (int i = tid; i < nv; i += T) {
-            const int p = j == (k >> 1) ? (i ^ (k - 1)) : (i ^ j);
-            if (p > i && p < nv) {
-              const long long x = r.keys[i], y = r.keys[p];
-              if (y < x) {
-                r.keys[i] = y;
-                r.keys[p] = x;
-              }
+
+      // ---- ids: ranks in the order, for s ascending, rev clean, rev sub,
+      // fwd sub, fwd clean; then the rev end slots (clean, sub each), then
+      // the fwd end slots (sub, clean each) ----
+      {
+        auto bit = [](const uint8_t* ev, int s, uint8_t m) {
+          return (ev[s] & m) ? 1 : 0;
+        };
+        int c0, c1;
+        my_cols(ncol, c0, c1);
+        int v[1] = {0}, ex[1], tot[1];
+        for (int s = 3 * c0; s < 3 * c1; ++s)
+          v[0] += bit(r.evR, s, CLN) + bit(r.evR, s, SUBB) +
+                  bit(r.evF, s, SUBB) + bit(r.evF, s, CLN);
+        block_scan<1>(v, ex, tot, false, AddOp(), 0, sbuf);
+        int run = ex[0];
+        for (int s = 3 * c0; s < 3 * c1; ++s) {
+          run += bit(r.evR, s, CLN);
+          r.idR[s] = run;
+          run += bit(r.evR, s, SUBB);
+          r.idSR[s] = run;
+          run += bit(r.evF, s, SUBB);
+          r.idSF[s] = run;
+          run += bit(r.evF, s, CLN);
+          r.idF[s] = run;
+        }
+        if (tid == 0) {
+          int acc = tot[0];
+          for (int k = Lp; k < Lp + 3; ++k) {
+            acc += bit(r.evR, k, CLN);
+            r.idR[k] = acc;
+            acc += bit(r.evR, k, SUBB);
+            r.idSR[k] = acc;
+          }
+          for (int k = Lp; k < Lp + 3; ++k) {
+            acc += bit(r.evF, k, SUBB);
+            r.idSF[k] = acc;
+            acc += bit(r.evF, k, CLN);
+            r.idF[k] = acc;
+          }
+        }
+        __syncthreads();
+      }
+
+      // ---- event assembly: compact, sort on (pos, tiekey, index), write
+      {
+        const int KN = cdiv(N, T);
+        const int i0 = min(tid * KN, N), i1 = min(i0 + KN, N);
+        int v[1] = {0}, ex[1], tot[1];
+        for (int i = i0; i < i1; ++i) v[0] += item_s(r, tr, i).valid;
+        block_scan<1>(v, ex, tot, false, AddOp(), 0, sbuf);
+        const int nv = tot[0];
+        const size_t ob = (size_t)b * Eo;
+        S* o_score = (S*)a.o_score;
+        auto put = [&](int row, const ItemS<S>& it, int typ) {
+          a.o_pos[ob + row] = it.pos;
+          a.o_typ[ob + row] = typ;
+          a.o_sub[ob + row] = it.sub;
+          a.o_id[ob + row] = it.id;
+          o_score[ob + row] = it.score;
+          a.o_trunc[ob + row] = it.trunc;
+          a.o_err_pos[ob + row] = it.err_pos;
+          a.o_err_typ[ob + row] = it.err_typ;
+        };
+        int vp = ex[0];
+        for (int i = i0; i < i1; ++i) {
+          const ItemS<S> it = item_s(r, tr, i);
+          if (it.valid) {
+            r.keys[vp++] = (long long)it.pos * POS_SHIFT +
+                           (long long)it.tk * TK_SHIFT + i;
+          } else {
+            const int row = nv + (i - vp);
+            if (row < Eo) put(row, it, 0);
+          }
+        }
+        if (tid == 0) a.o_nev[b] = nv;
+        __syncthreads();
+        sort_keys(r.keys, nv);
+        const int nw = nv < Eo ? nv : Eo;
+        for (int row = tid; row < nw; row += T) {
+          const ItemS<S> it =
+              item_s(r, tr, (int)(r.keys[row] & (TK_SHIFT - 1)));
+          put(row, it, it.typ);
+        }
+        __syncthreads();
+      }
+    } else {
+      // ---- the per-slot event gate (evprod) ----
+      for (int x = tid; x < Lp + 3; x += T) {
+        bool fr6 = false, fa6 = false, rr6 = false, ra6 = false;
+        for (int k = 0; k < 6; ++k) {
+          if (x == tr.slot[k]) {
+            fr6 = fr6 || tr.raw[k];
+            fa6 = fa6 || tr.fin[k];
+          }
+          if (x == tr.slot[6 + k]) {
+            rr6 = rr6 || tr.raw[6 + k];
+            ra6 = ra6 || tr.fin[6 + k];
+          }
+        }
+        const bool ef = fwd_slot<false>(r, x).emit &&
+                        (seg_f(r, r.F, x) || fr6) &&
+                        (seg_f(r, r.F + Lp, x) || fa6);
+        const bool er = rev_slot<false>(r, x).emit &&
+                        (seg_r(r, r.F + 2 * Lp, x) || rr6) &&
+                        (seg_r(r, r.F + 3 * Lp, x) || ra6);
+        r.evF[x] = ef;
+        r.evR[x] = er;
+      }
+      __syncthreads();
+
+      // ---- event-set ids (_assign_ids): ranks in the order rev s, fwd s
+      // (s ascending), the 3 rev end slots, the 3 fwd end slots ----
+      {
+        int c0, c1;
+        my_cols(ncol, c0, c1);
+        int v[1] = {0}, ex[1], tot[1];
+        for (int s = 3 * c0; s < 3 * c1; ++s) v[0] += r.evR[s] + r.evF[s];
+        block_scan<1>(v, ex, tot, false, AddOp(), 0, sbuf);
+        int run = ex[0];
+        for (int s = 3 * c0; s < 3 * c1; ++s) {
+          run += r.evR[s];
+          r.idR[s] = run;
+          run += r.evF[s];
+          r.idF[s] = run;
+        }
+        if (tid == 0) {
+          int acc = tot[0];
+          for (int k = 0; k < 3; ++k) {
+            acc += r.evR[Lp + k];
+            r.idR[Lp + k] = acc;
+          }
+          for (int k = 0; k < 3; ++k) {
+            acc += r.evF[Lp + k];
+            r.idF[Lp + k] = acc;
+          }
+        }
+        __syncthreads();
+      }
+
+      // ---- event assembly: compact, sort on (pos, index), write ----
+      {
+        const int KN = cdiv(N, T);
+        const int i0 = min(tid * KN, N), i1 = min(i0 + KN, N);
+        int v[1] = {0}, ex[1], tot[1];
+        for (int i = i0; i < i1; ++i) v[0] += item(r, tr, i).valid;
+        block_scan<1>(v, ex, tot, false, AddOp(), 0, sbuf);
+        const int nv = tot[0];
+        const size_t ob = (size_t)b * Eo;
+        S* o_score = (S*)a.o_score;
+        int vp = ex[0];
+        for (int i = i0; i < i1; ++i) {
+          const Item<S> it = item(r, tr, i);
+          if (it.valid) {
+            r.keys[vp++] = (long long)it.pos * 4294967296LL + i;
+          } else {
+            const int row = nv + (i - vp);
+            if (row < Eo) {
+              a.o_pos[ob + row] = it.pos;
+              a.o_typ[ob + row] = 0;
+              a.o_sub[ob + row] = it.sub;
+              a.o_id[ob + row] = it.id;
+              o_score[ob + row] = it.score;
+              a.o_trunc[ob + row] = it.trunc;
             }
           }
-          __syncthreads();
         }
+        if (tid == 0) a.o_nev[b] = nv;
+        __syncthreads();
+        sort_keys(r.keys, nv);
+        const int nw = nv < Eo ? nv : Eo;
+        for (int row = tid; row < nw; row += T) {
+          const int i = (int)(r.keys[row] & 0xffffffffLL);
+          const Item<S> it = item(r, tr, i);
+          a.o_pos[ob + row] = it.pos;
+          a.o_typ[ob + row] = it.typ;
+          a.o_sub[ob + row] = it.sub;
+          a.o_id[ob + row] = it.id;
+          o_score[ob + row] = it.score;
+          a.o_trunc[ob + row] = it.trunc;
+        }
+        __syncthreads();
       }
-      const int nw = nv < Eo ? nv : Eo;
-      for (int row = tid; row < nw; row += T) {
-        const int i = (int)(r.keys[row] & 0xffffffffLL);
-        const Item<S> it = item(r, tr, i);
-        a.o_pos[ob + row] = it.pos;
-        a.o_typ[ob + row] = it.typ;
-        a.o_sub[ob + row] = it.sub;
-        a.o_id[ob + row] = it.id;
-        o_score[ob + row] = it.score;
-        a.o_trunc[ob + row] = it.trunc;
-      }
-      __syncthreads();
     }
   }
 }
 
-template <typename S, bool RBS>
-int launch(const Args& a, int grid, cudaStream_t st) {
-  auto k = frontend_kernel<S, RBS>;
+template <typename S, bool RBS, bool SUBS, class A>
+int launch(const A& a, int grid, cudaStream_t st) {
+  auto k = frontend_kernel<S, RBS, SUBS>;
   const size_t dyn = a.scratch ? 0 : (size_t)a.ws_bytes;
   if (dyn > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1185,10 +1765,10 @@ int launch(const Args& a, int grid, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename S, bool RBS>
+template <typename S, bool RBS, bool SUBS>
 int smem_room() {
   cudaFuncAttributes at;
-  cudaError_t e = cudaFuncGetAttributes(&at, frontend_kernel<S, RBS>);
+  cudaError_t e = cudaFuncGetAttributes(&at, frontend_kernel<S, RBS, SUBS>);
   if (e != cudaSuccess) return -(int)e;
   int dev = 0, optin = 0;
   e = cudaGetDevice(&dev);
@@ -1199,23 +1779,44 @@ int smem_room() {
   return optin - (int)at.sharedSizeBytes;
 }
 
+template <bool SUBS>
+int smem_room_of(int f64, int rbs) {
+  if (f64)
+    return rbs ? smem_room<double, true, SUBS>()
+               : smem_room<double, false, SUBS>();
+  return rbs ? smem_room<float, true, SUBS>() : smem_room<float, false, SUBS>();
+}
+
+template <bool SUBS, class A>
+int launch_of(const A& a, int f64, int grid, cudaStream_t st) {
+  const bool rbs = a.W > 0;
+  if (f64)
+    return rbs ? launch<double, true, SUBS>(a, grid, st)
+               : launch<double, false, SUBS>(a, grid, st);
+  return rbs ? launch<float, true, SUBS>(a, grid, st)
+             : launch<float, false, SUBS>(a, grid, st);
+}
+
 }  // namespace
 
-// Bytes of one read's workspace at Lp (f64 or f32 carry).
-extern "C" long long gmt_frontend_ws(int Lp, int f64) {
-  return (long long)make_layout(Lp, f64 ? 8 : 4).total;
+// Bytes of one read's workspace at Lp (f64 or f32 carry; error-free or
+// substitution mode).
+extern "C" long long gmt_frontend_ws(int Lp, int f64, int subs) {
+  return (long long)make_layout(Lp, f64 ? 8 : 4, subs != 0).total;
 }
 
 // Dynamic shared memory a block of the instantiation may take on the
 // current device (a negative cudaError on failure).
-extern "C" int gmt_frontend_smem_room(int f64, int rbs) {
-  if (f64) return rbs ? smem_room<double, true>() : smem_room<double, false>();
-  return rbs ? smem_room<float, true>() : smem_room<float, false>();
+extern "C" int gmt_frontend_smem_room(int f64, int rbs, int subs) {
+  return subs ? smem_room_of<true>(f64, rbs) : smem_room_of<false>(f64, rbs);
 }
 
 // One launch over B reads. ``scratch`` null: each block's workspace is
 // ws_bytes of dynamic shared memory; else ``grid`` blocks each use their
-// ws_bytes slice of scratch. Returns cudaGetLastError() after the launch.
+// ws_bytes slice of scratch. With ``subs`` the substitution mode: ``quals``
+// (B, Lp) uint8 or null (then the penalties pen[2 * mid + last]), ``cp``
+// the 256 doubles of _CP_TAB, and the error rows o_err_pos / o_err_typ.
+// Returns cudaGetLastError() after the launch.
 extern "C" int gmt_frontend(
     const void* seq, const void* n, const void* groups, const void* gene6,
     const void* ind6, const void* fwd_start, const void* rev_start,
@@ -1227,8 +1828,10 @@ extern "C" int gmt_frontend(
     void* o_score, void* o_trunc, void* o_nev, void* scratch,
     long long ws_bytes, int grid, int B, int Lp, int G, int NS, int LN, int C,
     int WT, int W, int rbw, int mgl, int E, int f64, double ev_thresh,
-    double start_thresh, void* stream) {
-  Args a;
+    double start_thresh, int subs, const void* quals, const void* cp,
+    void* o_err_pos, void* o_err_typ, double pen_ff, double pen_ft,
+    double pen_tf, double pen_tt, void* stream) {
+  ArgsS a;
   a.seq = static_cast<const int*>(seq);
   a.n = static_cast<const int*>(n);
   a.groups = static_cast<const int*>(groups);
@@ -1272,10 +1875,14 @@ extern "C" int gmt_frontend(
   a.ev_thresh = ev_thresh;
   a.start_thresh = start_thresh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool rbs = W > 0;
-  if (f64)
-    return rbs ? launch<double, true>(a, grid, st)
-               : launch<double, false>(a, grid, st);
-  return rbs ? launch<float, true>(a, grid, st)
-             : launch<float, false>(a, grid, st);
+  if (!subs) return launch_of<false>(static_cast<const Args&>(a), f64, grid, st);
+  a.quals = static_cast<const uint8_t*>(quals);
+  a.cp = static_cast<const double*>(cp);
+  a.o_err_pos = static_cast<int*>(o_err_pos);
+  a.o_err_typ = static_cast<int*>(o_err_typ);
+  a.pen[0] = pen_ff;
+  a.pen[1] = pen_ft;
+  a.pen[2] = pen_tf;
+  a.pen[3] = pen_tt;
+  return launch_of<true>(a, f64, grid, st);
 }

@@ -6,9 +6,9 @@ error-free and the substitution mode, with or without per-base qualities
 codons). The six-frame ICM
 log-probs come from ``ops.icm_cuda`` and stay on the device; the ORF and
 start-candidate frontend and event assembly run as one launch of KF
-(``ops.frontend_cuda``) in the error-free mode and as tensor code on the
-same device in the substitution mode (on CPU tensors, both as the plain
-``ops.frontend``), the windowed event-graph DP and the traceback as one
+(``ops.frontend_cuda``) in either mode, the qualities handed to it in
+the substitution mode (on CPU tensors, as the plain ``ops.frontend``),
+the windowed event-graph DP and the traceback as one
 launch of K3 (``ops.event_dp_cuda``; on CPU tensors its plain version,
 ``ops.event_dp``), and only gene records come back to the host.
 

@@ -1,15 +1,16 @@
 """ORF/start-candidate frontend and event assembly, batched over reads.
 
-PyTorch counterpart of the error-free frontend of
+PyTorch counterpart of the frontend of
 ``glimmer_mg_tpu.ops.device_predict`` (``_read_tables`` through
 ``_frontend_one``). Everything is written over (B, Lp) tensors, Lp a
 multiple of 3; per-ORF values live at the ORF's closing-stop position and
 reach the ORF's members through frame-class fill scans.
 
-With ``consts["subs"]`` false this is the plain version of KF
-(``csrc/frontend.cu``, launched by ``ops.frontend_cuda.frontend`` on CUDA
-tensors), which matches it bit for bit; float operations keep one order
-on every device for that (the class-PWM sum, true divisions).
+This is the plain version of KF (``csrc/frontend.cu``, launched by
+``ops.frontend_cuda.frontend`` on CUDA tensors) in both modes, error-free
+and substitution (``consts["subs"]``, with or without qualities), which
+matches it bit for bit; float operations keep one order on every device
+for that (the class-PWM sum, true divisions, the stop penalty's products).
 
 Reference anchors (behavioural spec):
   Find_Orfs / Do_*_Stop_Codon        glimmer_base.cc:461-780
@@ -55,6 +56,34 @@ def _zero(x):
     return _full(x, (), 0)
 
 
+def stop_penalty_values():
+    """The four no-quality Pass_Stop_Penalty values as the host computes
+    them (Python floats, ``math.log``), at index 2 * mid + last: the
+    codon's middle / last base (in the gene's direction) is the one the
+    reference weighs up. KF (``csrc/frontend.cu``) is given these."""
+    dp = 0.999
+    fa = 2.0 / 3.0 * dp + 1.0 / 3.0
+
+    def pen(mid, last):
+        pp = dp * (fa if mid else dp) * (fa if last else dp)
+        return math.log(1.0 - pp) - math.log(pp)
+
+    return tuple(pen(mid, last) for mid in (False, True)
+                 for last in (False, True))
+
+
+_CP_DEV: dict = {}
+
+
+def cp_table(device):
+    """``_CP_TAB`` (256,) f64 on ``device``, copied from the host once a
+    device (a host copy synchronises the stream)."""
+    device = torch.device(device)
+    if device not in _CP_DEV:
+        _CP_DEV[device] = torch.as_tensor(_CP_TAB, device=device)
+    return _CP_DEV[device]
+
+
 def _stop_penalty(mid_x, last_x, quals, fwd, fdt):
     """Pass_Stop_Penalty (glimmer-mg.cc:961) of a stop codon read through
     as a substitution, at every position x of its last base: (B, Lp) in
@@ -66,24 +95,19 @@ def _stop_penalty(mid_x, last_x, quals, fwd, fdt):
     to ``fdt`` once, as the host computes them. With qualities the
     per-base probabilities come from ``_CP_TAB`` and multiply in the
     host's order; pp is clipped into (0, 1) so the extremes stay finite.
+    The constants are filled on the device (``torch.full``), not copied
+    from the host, which would synchronise the stream.
     """
     dev = mid_x.device
 
     def const(v):
-        return torch.tensor(v, dtype=fdt, device=dev)
+        return torch.full((), v, dtype=fdt, device=dev)
 
     if quals is None:
-        dp = 0.999
-        fa = 2.0 / 3.0 * dp + 1.0 / 3.0
-
-        def pen(mid, last):
-            pp = dp * (fa if mid else dp) * (fa if last else dp)
-            return const(math.log(1.0 - pp) - math.log(pp))
-
-        return torch.where(
-            mid_x, torch.where(last_x, pen(True, True), pen(True, False)),
-            torch.where(last_x, pen(False, True), pen(False, False)))
-    cp = torch.as_tensor(_CP_TAB, device=dev).to(fdt)[quals.long()]
+        ff, ft, tf, tt = (const(v) for v in stop_penalty_values())
+        return torch.where(mid_x, torch.where(last_x, tt, tf),
+                           torch.where(last_x, ft, ff))
+    cp = cp_table(dev).to(fdt)[quals.long()]
     cp1 = _shift_right(cp, 1, 0.5)
     cp0 = _shift_right(cp, 2, 0.5)
     two3, one3 = const(2.0 / 3.0), const(1.0 / 3.0)

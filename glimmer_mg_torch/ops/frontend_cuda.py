@@ -1,18 +1,17 @@
-"""The error-free frontend on the GPU: the wrapper of KF.
+"""The frontend on the GPU: the wrapper of KF.
 
 ``frontend`` runs ``csrc/frontend.cu``, the counterpart of the JAX
-package's error-free frontend (``glimmer_mg_tpu.ops.device_predict``'s
+package's frontend (``glimmer_mg_tpu.ops.device_predict``'s
 ``_read_tables`` through ``_assemble_events`` as ``_frontend_one`` runs
 them, XLA inside its jitted device program): ORF slots, start scoring and
-event assembly of a chunk in one launch, with no host sync. Its plain
-version, which the kernel matches bit for bit on every output, is
-``ops.frontend.frontend``.
+event assembly of a chunk in one launch, with no host sync, in the
+error-free and in the substitution mode (``consts["subs"]``, with or
+without per-base qualities). Its plain version, which the kernel matches
+bit for bit on every output, is ``ops.frontend.frontend``.
 
-The rule: CPU tensors go to the plain version; on CUDA, the error-free
-mode (``consts["subs"]`` false) launches KF, and the substitution mode
-runs the plain version's tensor code on the card, because KF does not
-cover that mode yet. There is no fallback from the kernel to the plain
-version: a failed build or launch raises.
+The rule: CPU tensors go to the plain version; CUDA tensors launch KF in
+either mode. There is no fallback from the kernel to the plain version: a
+failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -26,13 +25,17 @@ from .event_dp_cuda import _check
 launches = 0
 
 # Longest padded read the kernel takes: 4 Lp + 18 candidates must index as
-# int32 and the blocked prefix sum has at most 8 levels.
+# int32 and the blocked prefix sum has at most 8 levels. In substitution
+# mode a candidate's sort key packs its position, tie key (< 8 Lp + 44) and
+# index (< 8 Lp + 33) into 63 bits.
 MAX_LP = 1 << 26
+MAX_LP_SUBS = 1 << 18
 
 # Blocks an SM when a read's workspace outgrows the shared memory a block
-# may take (f64 from Lp 2,592, f32 from Lp 3,072 on an H100) and goes to
-# a global scratch buffer instead: grid = this x SMs, each block looping
-# over reads.
+# may take (error-free: f64 from Lp 2,592, f32 from Lp 3,072 on an H100;
+# substitution mode: f64 from Lp 1,578, f32 from Lp 1,776) and goes to a
+# global scratch buffer instead: grid = this x SMs, each block looping over
+# reads.
 SCRATCH_BLOCKS_PER_SM = 2
 
 _ROOM: dict = {}
@@ -50,17 +53,18 @@ def reset_launches() -> None:
     launches = 0
 
 
-def workspace_bytes(Lp: int, f64: bool) -> int:
+def workspace_bytes(Lp: int, f64: bool, subs: bool = False) -> int:
     """Bytes of one read's working arrays in the kernel at Lp."""
     from .. import _build
-    return int(_build.lib().gmt_frontend_ws(Lp, int(f64)))
+    return int(_build.lib().gmt_frontend_ws(Lp, int(f64), int(subs)))
 
 
-def _smem_room(device, f64: bool, rbs: bool) -> int:
-    key = (device.index, f64, rbs)
+def _smem_room(device, f64: bool, rbs: bool, subs: bool = False) -> int:
+    key = (device.index, f64, rbs, subs)
     if key not in _ROOM:
         from .. import _build
-        room = _build.lib().gmt_frontend_smem_room(int(f64), int(rbs))
+        room = _build.lib().gmt_frontend_smem_room(int(f64), int(rbs),
+                                                   int(subs))
         if room < 0:
             raise RuntimeError(f"frontend kernel attributes (cudaError "
                                f"{-room})")
@@ -79,16 +83,19 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
              quals=None):
     """``ops.frontend.frontend``'s function and signature: (ev, n_events),
     ev the (B, E) event rows pos, typ, sub, id (int32), score (the carry's
-    float type) and trunc (bool), n_events (B,) int32 the count of valid
-    candidates (also past E = min(max_events, 4 Lp + 18)).
+    float type) and trunc (bool), in substitution mode also err_pos and
+    err_typ (int32), n_events (B,) int32 the count of valid candidates
+    (also past E = min(max_events, 4 Lp + 18), in substitution mode
+    min(max_events, 8 Lp + 33)). ``quals`` (B, Lp) uint8 or None is read
+    only in substitution mode.
 
-    On CUDA tensors with ``consts["subs"]`` false: one launch of KF, which
-    reads the bank's tables by group (group indices are clamped in the
-    kernel, so nothing is checked on the values and nothing syncs);
-    inputs are checked for device, dtype, shape and contiguity first. In
-    substitution mode, and on CPU tensors, the plain version runs."""
+    On CUDA tensors: one launch of KF, which reads the bank's tables by
+    group (group indices are clamped in the kernel, so nothing is checked
+    on the values and nothing syncs); inputs are checked for device,
+    dtype, shape and contiguity first. On CPU tensors the plain version
+    runs."""
     device = seq.device
-    if device.type == "cpu" or consts.get("subs"):
+    if device.type == "cpu":
         return plain.frontend(seq, n, gi, gene6, ind6, bank, Lp, consts,
                               max_events, quals=quals)
     if device.type != "cuda":
@@ -104,9 +111,15 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
     _check("gi", gi, i32, (B,), device)
     _check("gene6", gene6, (torch.float32,), (B, 6, Lp), device)
     _check("ind6", ind6, (torch.float32,), (B, 6, Lp), device)
-    if Lp % 3 or Lp < 6 or Lp >= MAX_LP:
-        raise ValueError(f"Lp must be a multiple of 3 in [6, {MAX_LP}), "
+    subs = bool(consts.get("subs"))
+    max_lp = MAX_LP_SUBS if subs else MAX_LP
+    if Lp % 3 or Lp < 6 or Lp >= max_lp:
+        raise ValueError(f"Lp must be a multiple of 3 in [6, {max_lp}), "
                          f"got {Lp}")
+    if not subs:
+        quals = None
+    elif quals is not None:
+        _check("quals", quals, (torch.uint8,), (B, Lp), device)
     G = bank["prior"].shape[0]
     for name, dt, w in _TABLES:
         _check(name, bank[name], (dt,), (G, w), device)
@@ -134,7 +147,7 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
     if max_events < 1:
         raise ValueError("max_events must be at least 1")
 
-    E = min(int(max_events), 4 * Lp + 18)
+    E = min(int(max_events), (8 * Lp + 33) if subs else (4 * Lp + 18))
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=device)
@@ -142,6 +155,9 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
     ev = {"pos": empty((B, E), torch.int32), "typ": empty((B, E), torch.int32),
           "sub": empty((B, E), torch.int32), "id": empty((B, E), torch.int32),
           "score": empty((B, E), fdt), "trunc": empty((B, E), torch.bool)}
+    if subs:
+        ev["err_pos"] = empty((B, E), torch.int32)
+        ev["err_typ"] = empty((B, E), torch.int32)
     n_events = empty((B,), torch.int32)
     if B == 0:
         return ev, n_events
@@ -149,12 +165,13 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
     from .. import _build
 
     f64 = fdt == torch.float64
-    ws = workspace_bytes(Lp, f64)
+    ws = workspace_bytes(Lp, f64, subs)
     scratch = None
     grid = B
-    if ws > _smem_room(device, f64, W > 0):
+    if ws > _smem_room(device, f64, W > 0, subs):
         grid = min(B, SCRATCH_BLOCKS_PER_SM * _sms(device))
         scratch = empty((grid * ws,), torch.uint8)
+    cp = plain.cp_table(device) if quals is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _build.lib().gmt_frontend(
         seq.data_ptr(), n.data_ptr(), gi.data_ptr(), gene6.data_ptr(),
@@ -169,7 +186,11 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
         None if scratch is None else scratch.data_ptr(), ws, grid, B, Lp, G,
         NS, LN, C, WT, W, int(consts["ws"]), int(consts["min_gene_len"]), E,
         int(f64), float(consts["event_threshold"]),
-        float(consts["start_threshold"]), stream)
+        float(consts["start_threshold"]), int(subs),
+        None if quals is None else quals.data_ptr(),
+        None if cp is None else cp.data_ptr(),
+        *(ev[k].data_ptr() if subs else None for k in ("err_pos", "err_typ")),
+        *plain.stop_penalty_values(), stream)
     if err != 0:
         raise RuntimeError(f"frontend kernel launch failed (cudaError {err})")
     global launches

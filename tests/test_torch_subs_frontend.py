@@ -12,7 +12,16 @@ only start events (the events that carry the RBS boost) may differ, by
 at most 1e-14, and the test prints them (``-s``); with a quality file
 they are within rtol 1e-12 / atol 1e-12. -m mode: coordinates, ids and error records equal to the JAX
 device path and host engine, the ``.predict`` text byte-identical.
+
+Two contracts KF (``csrc/frontend.cu``) implements in substitution mode
+are held on the twin here: its two stable argsorts equal one sort of the
+valid candidates on (pos, tiekey, concatenation index), the invalid ones
+after them in concatenation order, over the 8 Lp + 33 candidates; and the
+four no-quality stop penalties KF is given (``stop_penalty_values``) are
+the host engine's, and round to ``_stop_penalty``'s values in f64 and f32.
 """
+
+import math
 
 import jax
 import numpy as np
@@ -20,6 +29,7 @@ import pytest
 import torch
 
 from glimmer_mg_tpu.engine import glimmer_mg as jmg
+from glimmer_mg_tpu.engine.glimmer_mg import pass_stop_penalty
 from glimmer_mg_tpu.models import icm as icm_mod
 from glimmer_mg_tpu.ops import device_predict as jdp, icm_score as jis
 from glimmer_mg_torch.engine import glimmer_mg as tmg
@@ -141,3 +151,95 @@ def test_subs_frontend_matches_jax(frontend_batch, with_quals, rbs):
         print(f"read {r} event {cols[k]}: pos "
               f"{got_ev['pos'][r, cols[k]]} typ {typ[k]} score {b[k]!r} vs "
               f"JAX {a[k]!r}")
+
+
+@pytest.mark.parametrize("with_quals, rbs", [(False, True), (True, True),
+                                              (False, False)],
+                         ids=["default_qualities", "quality_file",
+                              "default_qualities_no_rbs"])
+def test_subs_event_order_is_one_sort(frontend_batch, with_quals, rbs,
+                                      monkeypatch):
+    """The tie-ordered assembly: every row of the twin's events (all
+    8 Lp + 33 of them, padding rows included) is the candidate that one
+    sort of the valid candidates on (pos, tiekey, index), followed by the
+    invalid ones in index order, puts there."""
+    models_list, seqs, lengths, groups, g6, i6, q = frontend_batch
+    Lp = seqs.shape[1]
+    bank = tdp.build_bank(models_list, 512)
+    consts = dict(min_gene_len=bank.min_gene_len, max_olap=bank.max_olap,
+                  event_threshold=bank.event_threshold,
+                  start_threshold=bank.start_threshold,
+                  ws=bank.ribosome_window, W=bank.pwm_w if rbs else 0,
+                  subs=True, fdt=torch.float64)
+    seen = []
+    assemble = tfe._assemble_events
+
+    def spy(fam, max_events, ties=False):
+        seen.append(fam)
+        return assemble(fam, max_events, ties=ties)
+
+    monkeypatch.setattr(tfe, "_assemble_events", spy)
+    t = torch.from_numpy
+    width = 8 * Lp + 33
+    ev, n_ev = tfe.frontend(
+        t(seqs), t(lengths), t(groups), t(g6), t(i6),
+        tdp.bank_to_device(bank, "cpu"), Lp, consts, width,
+        quals=t(q) if with_quals else None)
+    (fam,) = seen
+
+    def cat(key):
+        return torch.cat([f[key] for f in fam], dim=-1).numpy()
+
+    valid, pos, tk = cat("valid"), cat("pos"), cat("tiekey")
+    assert valid.shape[1] == width
+    assert ev["pos"].shape[1] == width
+    assert int(tk.max()) < 8 * Lp + 44
+    assert (n_ev.numpy() == valid.sum(1)).all()
+    idx = np.arange(width)
+    fields = {k: cat(k) for k in ("sub", "id", "score", "trunc", "err_pos",
+                                  "err_typ")}
+    fields["typ"] = np.where(valid, cat("typ"), 0)
+    fields["pos"] = pos
+    n_sub = n_ties = 0
+    for r in range(valid.shape[0]):
+        v = valid[r]
+        live = idx[v][np.lexsort((idx[v], tk[r, v], pos[r, v]))]
+        order = np.concatenate([live, idx[~v]])
+        for k, a in fields.items():
+            assert np.array_equal(ev[k][r].numpy(), a[r, order],
+                                  equal_nan=k == "score"), (r, k)
+        n_sub += int((fields["err_typ"][r, live] == 2).sum())
+        n_ties += len(live) - len(set(pos[r, live]))
+    assert n_sub > 20
+    # equal positions occur, so the tie key decides some rows
+    assert n_ties > 0
+
+
+@pytest.mark.parametrize("fdt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_stop_penalty_values(fdt):
+    """KF's four no-quality penalties (the doubles the wrapper passes, at
+    2 * mid + last) are the host engine's Pass_Stop_Penalty on each
+    strand, and rounded to the carry's type they are ``_stop_penalty``'s
+    values with ``quals=None``."""
+    vals = tfe.stop_penalty_values()
+    assert len(vals) == 4
+    for mid in (False, True):
+        for last in (False, True):
+            m, la = "a" if mid else "c", "a" if last else "c"
+            fwd = pass_stop_penalty(None, "t" + m + la, None, 1, 3, 0)
+            m, la = "t" if mid else "g", "t" if last else "g"
+            rev = pass_stop_penalty(None, la + m + "c", None, -1, 0, 1)
+            assert vals[2 * mid + last] == fwd == rev
+    mid = torch.tensor([[False, False, True, True]])
+    last = torch.tensor([[False, True, False, True]])
+    for fwd in (True, False):
+        got = tfe._stop_penalty(mid, last, None, fwd, fdt)
+        assert got.dtype == fdt
+        want = torch.tensor([vals], dtype=torch.float64).to(fdt)
+        assert torch.equal(got, want)
+    if fdt == torch.float32:
+        assert np.array_equal(got[0].numpy(),
+                              np.array(vals, dtype=np.float64).astype(
+                                  np.float32))
+    assert all(math.isfinite(v) and v < 0 for v in vals)
