@@ -167,7 +167,16 @@ device-route passes of each mode (indel mode, phase 8, launches it 0
 times, which it asserts); "launches_by_path" gives each. K3's and KF's
 "ms", "plain_ms" and bound are those of phase 5's chunk (error-free,
 f64); "cases" gives each mode and carry (KF: error_free, subs and
-subs_quals, each f64 and f32).
+subs_quals, each f64 and f32; each KF case also names its instantiation
+and gives its blocks an SM at the chunk's Lp, its registers and stack
+frame (cuobjdump -res-usage), its spill bytes (ptxas, when the run built
+the library) and its SASS BAR.SYNC count, null where the toolkit lacks
+cuobjdump).
+
+``--kf-ab NAME=PATH`` runs KF alone instead (``kf_ab``): this checkout's
+csrc/frontend.cu beside another frontend source (the parent commit's,
+say), each built as a library of its own, held bitwise to the twin and
+timed in turns (A, B, B, A) at Lp 768 and 2,304, with their resources.
 
 The script imports only glimmer_mg_torch and checks at the end, after
 the bench, that no module of JAX or of glimmer_mg_tpu was loaded.
@@ -194,6 +203,8 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -353,10 +364,10 @@ def add_decoys(icm_dir, n, seed):
         write_icm(decoy, os.path.join(out, f"d{k:03d}.icm"))
 
 
-def sample_reads(genomes, n_reads, seed):
-    """Reads of 300/500/700 bp from random genome positions (half
-    reverse-complemented); each classified to its source genome, every
-    other read also to a second genome."""
+def sample_reads(genomes, n_reads, seed, lengths=(300, 500, 700)):
+    """Reads of the three ``lengths`` in turn (300/500/700 bp) from random
+    genome positions (half reverse-complemented); each classified to its
+    source genome, every other read also to a second genome."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -366,7 +377,7 @@ def sample_reads(genomes, n_reads, seed):
     for i in range(n_reads):
         src = int(rng.integers(len(names)))
         g = genomes[names[src]].lower()
-        ln = (300, 500, 700)[i % 3]
+        ln = lengths[i % 3]
         st = int(rng.integers(0, len(g) - ln))
         s = g[st:st + ln]
         if rng.random() < 0.5:
@@ -440,6 +451,215 @@ def ptxas_lines(source, kernel):
                     if "Used" in x or "spill" in x]
             out.append(f"{name}: {'; '.join(used)}")
     return out
+
+
+KF_KERNEL = re.compile(r"frontend_kernelI([df])Lb([01])ELb([01])E([a-z])?")
+
+
+def kf_instantiation(name):
+    """"f64_rbs_ef", "f32_norbs_subs_i16", ... of a mangled frontend_kernel
+    name (the index type, where the kernel has one, last), or None."""
+    m = KF_KERNEL.search(name)
+    if not m:
+        return None
+    key = (("f64" if m[1] == "d" else "f32")
+           + ("_rbs" if m[2] == "1" else "_norbs")
+           + ("_subs" if m[3] == "1" else "_ef"))
+    if m[4]:
+        key += {"s": "_i16", "i": "_i32"}.get(m[4], "_" + m[4])
+    return key
+
+
+def cuobjdump(*argv):
+    """cuobjdump's output, or None where the toolkit has none."""
+    from glimmer_mg_torch import _build
+
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, *argv], capture_output=True, text=True)
+    return out.stdout if out.returncode == 0 else None
+
+
+def kf_resources(so, ptxas_log=""):
+    """KF's instantiations in the library ``so``: registers and stack
+    frame (cuobjdump -res-usage, else ptxas), ptxas's spill stores and
+    loads (when ``ptxas_log`` has the build), and the static counts of
+    BAR.SYNC, LDL and STL in the SASS (cuobjdump -sass); None where a
+    tool or log is missing."""
+    res = collections.defaultdict(lambda: dict.fromkeys(
+        ("regs", "stack_bytes", "spill_bytes", "bar_sync", "ldl", "stl")))
+    fn = None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = kf_instantiation(m[1])
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            res[fn]["stack_bytes"] = int(m[1])
+            res[fn]["spill_bytes"] = int(m[2]) + int(m[3])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            res[fn]["regs"] = int(m[1])
+    usage = cuobjdump("-res-usage", so) or ""
+    for line in usage.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = kf_instantiation(m[1])
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+)", line)
+        if m and fn:
+            res[fn]["regs"], res[fn]["stack_bytes"] = int(m[1]), int(m[2])
+    sass = cuobjdump("-sass", so)
+    fn = None
+    for line in (sass or "").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kf_instantiation(m[1])
+            if fn:
+                res[fn].update(bar_sync=0, ldl=0, stl=0)
+            continue
+        if fn:
+            for key, pat in (("bar_sync", r"\bBAR\.SYNC"),
+                             ("ldl", r"\bLDL\b"), ("stl", r"\bSTL\b")):
+                if re.search(pat, line):
+                    res[fn][key] += 1
+    return dict(res)
+
+
+@contextlib.contextmanager
+def kf_library(cdll):
+    """KF's wrapper launching from ``cdll`` (a library of a frontend
+    source) for the duration."""
+    from glimmer_mg_torch import _build
+    from glimmer_mg_torch.ops import frontend_cuda
+
+    old = _build.lib()
+    _build._LIB = cdll
+    frontend_cuda._ROOM.clear()
+    frontend_cuda._OCC.clear()
+    try:
+        yield
+    finally:
+        _build._LIB = old
+        frontend_cuda._ROOM.clear()
+        frontend_cuda._OCC.clear()
+
+
+def kf_ab(args):
+    """--kf-ab NAME=PATH (repeatable): KF alone, the library of this
+    checkout's csrc/frontend.cu ("this") beside one of each named frontend
+    source, each built alone (nvcc, the build's flags, all at once) and
+    launched through this checkout's wrapper. The chunks: phase 5's and
+    phase 7's 2,048 reads at Lp 768, and 2,048 reads of 1,100-2,250 bp
+    from the same genomes at Lp 2,304 (the card tests' long shape, where
+    workspaces outgrow the shared memory they may take), each in the six
+    cases of the kernels line (and error-free f64 with the RBS term off at
+    Lp 768). Every library is held bitwise to the twin in every case, then
+    timed (``kernel_ms``) in the order of the libraries and in reverse (A,
+    B, B, A), with each instantiation's resources (``kf_resources``) and,
+    per case, its workspace, the room it may take in shared memory and its
+    blocks an SM. Prints the record as one JSON line; raises, after it, if
+    a library differs from the twin."""
+    import ctypes
+
+    import torch
+
+    from glimmer_mg_torch import _build
+    from glimmer_mg_torch.ops import device_predict as dpk
+    from glimmer_mg_torch.ops import frontend, frontend_cuda, icm_cuda
+
+    specs = [("this", str(_build.CSRC_DIR / "frontend.cu"))]
+    specs += [tuple(x.split("=", 1)) for x in args.kf_ab]
+    out_dir = _build.BUILD_DIR / "kf_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    t0 = time.perf_counter()
+    logs = _build._run([[nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                         "-shared", "-o", str(out_dir / f"{n}.so"), src]
+                        for n, src in specs])
+    log(f"kf-ab: {len(logs)} libraries built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _build.build()
+    _build.lib()
+    libs = {}
+    for (name, src), text in zip(specs, logs):
+        so = str(out_dir / f"{name}.so")
+        cdll = ctypes.CDLL(so)
+        _build.bind_frontend(cdll)
+        libs[name] = {"source": src, "cdll": cdll,
+                      "resources": kf_resources(so, text), "cases": {}}
+        for key, r in sorted(libs[name]["resources"].items()):
+            log(f"kf-ab {name} {key}: {json.dumps(r)}")
+
+    cases = {}
+    with tempfile.TemporaryDirectory(prefix="gmt_kf_ab_") as root:
+        gd, genomes = build_database(root, args.genome_kb, args.seed)
+        for Lp, lengths in ((768, (300, 500, 700)),
+                            (2304, (1100, 1700, 2250))):
+            reads, cmap = sample_reads(genomes, 2048, args.seed + 3,
+                                       lengths)
+            sreads, scmap = sample_reads(genomes, 2048, args.seed + 11,
+                                         lengths)
+            sreads, quals = with_substitutions(sreads, 0.005, args.seed + 12)
+            for mode, rd, cm, q, subs in (
+                    ("error_free", reads, cmap, None, False),
+                    ("subs", sreads, scmap, None, True),
+                    ("subs_quals", sreads, scmap, quals, True)):
+                bank, dev, reads_t, lens, grp, q_t, consts = chunk_inputs(
+                    gd, rd, cm, q, subs, Lp)
+                g6, i6 = icm_cuda.mg_six_frame(
+                    dev["gene_mip"], dev["gene_probs"], dev["indep_mip"],
+                    dev["indep_probs"], reads_t, lens, grp,
+                    model_len=bank.model_len, depth=bank.depth)
+                fargs = (reads_t, lens, grp, g6, i6, dev, Lp)
+                for fdt, carry in ((torch.float64, "f64"),
+                                   (torch.float32, "f32")):
+                    cases[f"{mode}_{carry}_lp{Lp}"] = (
+                        fargs + (dict(consts, fdt=fdt), dpk.MAX_EVENTS), q_t)
+                if mode == "error_free" and Lp == 768:
+                    cases["error_free_f64_norbs_lp768"] = (
+                        fargs + (dict(consts, W=0), dpk.MAX_EVENTS), None)
+
+    names = [n for n, _src in specs]
+    device = torch.device(DEVICE, torch.cuda.current_device())
+    for cname, (fargs, q) in cases.items():
+        want = frontend.frontend(*fargs, quals=q)
+        Lp, consts = fargs[6], fargs[7]
+        f64 = consts["fdt"] == torch.float64
+        rbs, subs = consts["W"] > 0, bool(consts.get("subs"))
+        for name in names:
+            with kf_library(libs[name]["cdll"]):
+                got = frontend_cuda.frontend(*fargs, quals=q)
+                torch.cuda.synchronize()
+                libs[name]["cases"][cname] = {
+                    "differs": kf_differs(want, got), "ms": [],
+                    "n_events": int(want[1].sum()),
+                    "ws_bytes": frontend_cuda.workspace_bytes(Lp, f64, subs),
+                    "smem_room": frontend_cuda._smem_room(device, f64, rbs,
+                                                          subs),
+                    "blocks_per_sm": frontend_cuda.blocks_per_sm(
+                        Lp, f64, rbs, subs)}
+        del want, got
+        for name in names + names[::-1]:
+            with kf_library(libs[name]["cdll"]):
+                libs[name]["cases"][cname]["ms"].append(kernel_ms(
+                    lambda: frontend_cuda.frontend(*fargs, quals=q)))
+        log(f"kf-ab {cname}: " + ", ".join(
+            f"{n} {libs[n]['cases'][cname]['ms']}"
+            + ("" if libs[n]["cases"][cname]["differs"] is None
+               else f" DIFFERS ({libs[n]['cases'][cname]['differs']})")
+            for n in names) + f" [{gpu_line()}]")
+    for rec in libs.values():
+        del rec["cdll"]
+    print(gpu_line())
+    print(json.dumps({"kf_ab": libs}))
+    bad = [(n, c) for n in names for c, r in libs[n]["cases"].items()
+           if r["differs"] is not None]
+    assert not bad, f"KF differs from its twin: {bad}"
 
 
 def sixframe_phase(gd, genomes, seed):
@@ -858,6 +1078,56 @@ def kf_bytes(args, ev, quals=None):
     return inputs + sum(t.nbytes for t in ev.values()) + n.nbytes
 
 
+_KF_RESOURCES: dict = {}
+
+
+def kf_case_resources(args):
+    """The instantiation KF runs on a chunk (``args`` the frontend's
+    arguments): its blocks an SM at the chunk's Lp and, from the kernel
+    library of this run (``kf_resources``), its registers, stack frame,
+    spill bytes (when this process built the library) and SASS
+    BAR.SYNC count."""
+    import torch
+
+    from glimmer_mg_torch import _build
+    from glimmer_mg_torch.ops import frontend_cuda
+
+    if not _KF_RESOURCES:
+        _KF_RESOURCES.update(kf_resources(
+            str(_build.LIB_PATH), _build.build_log.get("frontend", "")))
+    Lp, consts = args[6], args[7]
+    f64, rbs = consts["fdt"] == torch.float64, consts["W"] > 0
+    subs = bool(consts.get("subs"))
+    key = (f"{'f64' if f64 else 'f32'}_{'rbs' if rbs else 'norbs'}_"
+           f"{'subs' if subs else 'ef'}_"
+           f"{'i16' if Lp < frontend_cuda.narrow_lp() else 'i32'}")
+    res = _KF_RESOURCES.get(key, {})
+    return {"instantiation": key,
+            "blocks_per_sm": frontend_cuda.blocks_per_sm(Lp, f64, rbs, subs),
+            **{k: res.get(k) for k in ("regs", "stack_bytes", "spill_bytes",
+                                       "bar_sync")}}
+
+
+def kf_differs(want, got):
+    """The first of KF's outputs (n_events, then the event rows) that is
+    not bitwise equal to the twin's, or None."""
+    import torch
+
+    (wev, wn), (gev, gn) = want, got
+    if not torch.equal(wn, gn):
+        return "n_events"
+    if set(wev) != set(gev):
+        return f"row set {sorted(wev)} / {sorted(gev)}"
+    for k, a in wev.items():
+        b = gev[k]
+        if a.dtype.is_floating_point:
+            iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+            a, b = a.view(iv), b.view(iv)
+        if not torch.equal(a, b):
+            return k
+    return None
+
+
 def kf_check(title, args, want, dev, grp, quals=None):
     """KF against its twin on one chunk (``args`` the frontend's
     arguments, ``quals`` its qualities in substitution mode, ``want`` the
@@ -879,14 +1149,8 @@ def kf_check(title, args, want, dev, grp, quals=None):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     (wev, wn), (gev, gn) = want, got
-    assert torch.equal(wn, gn), f"KF n_events differ ({title})"
-    assert set(wev) == set(gev), (title, sorted(wev), sorted(gev))
-    for k, a in wev.items():
-        b = gev[k]
-        if a.dtype.is_floating_point:
-            iv = torch.int64 if a.dtype == torch.float64 else torch.int32
-            a, b = a.view(iv), b.view(iv)
-        assert torch.equal(a, b), f"KF {k} differs from its twin ({title})"
+    bad = kf_differs(want, got)
+    assert bad is None, f"KF {bad} differs from its twin ({title})"
     consts = args[7]
     tables = {k: dev[k] for k in ("adj_or", "adj_dist", "adj_dist_len")}
     genes = []
@@ -910,37 +1174,32 @@ def kf_check(title, args, want, dev, grp, quals=None):
         live = (torch.arange(E, device=gn.device)[None]
                 < gn.clamp(max=E)[:, None])
         n_sub = int(((gev["err_typ"] == 2) & live).sum())
+    res = kf_case_resources(args)
     log(f"KF {title}: B {gn.shape[0]} x Lp {args[6]}; every output bitwise "
         f"equal to its twin ({int(gn.sum())} events, {n_sub} with a "
         f"substitution record in the rows, {over} reads past "
         f"{dpk.MAX_EVENTS}), K3's genes on KF's rows equal to those on the "
         f"twin's, KF host syncs 0 (sync debug mode error); KF {ms:.4f} ms "
         f"(device, CUDA events), twin {plain:.4f} ms; bound {bound_ms:.4f} "
-        f"ms ({nbytes / 1e6:.3f} MB over 3.35 TB/s) [{gpu_line()}]")
+        f"ms ({nbytes / 1e6:.3f} MB over 3.35 TB/s); {json.dumps(res)} "
+        f"[{gpu_line()}]")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": by, "max_abs_err": err, "n_events": int(gn.sum()),
-            "sub_events": n_sub, "reads_past_max_events": over}
+            "sub_events": n_sub, "reads_past_max_events": over, **res}
 
 
-def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
-                    subs=False):
-    """Host-clock stage times (synchronised; each stage runs once untimed
-    first, so that none pays for loading its kernels) of one 2,048-read
-    chunk, in substitution mode with ``subs`` (``quals``: qualities by
-    header), KF and its twin, K3 and its twin (event DP, then traceback)
-    as separate stages; then K3 against its twin on the chunk's rows
-    (``k3_check``) and KF against its twin on the chunk (``kf_check``)
-    with the f64 and the f32 carry, recorded in K3["cases"] and
-    KF["cases"]; in substitution mode with qualities KF is also held to
-    its twin on the same chunk without them (the "subs" cases)."""
+def chunk_inputs(gd, reads, cmap, quals=None, subs=False, Lp=768):
+    """The first 2,048 reads' chunk as the device route builds it (padded
+    to Lp, each read's classes' models, one bank): (bank, its tables on the
+    card,
+    reads, lengths, groups, the (B, Lp) uint8 qualities or None, the
+    frontend's constants with the f64 carry)."""
     import numpy as np
     import torch
 
     from glimmer_mg_torch.engine import glimmer_mg as tmg
     from glimmer_mg_torch.host import dna
     from glimmer_mg_torch.ops import device_predict as dpk
-    from glimmer_mg_torch.ops import event_dp, event_dp_cuda, frontend
-    from glimmer_mg_torch.ops import frontend_cuda, icm_cuda
 
     chunk = reads[:2048]
     cache, ids, models, group = {}, {}, [], []
@@ -957,9 +1216,9 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
         if len(models) == ids[id(m)]:
             models.append(m)
         group.append(ids[id(m)])
-    bank = dpk.build_bank(models, 768)
+    bank = dpk.build_bank(models, Lp)
     dev = dpk.bank_to_device(bank, DEVICE)
-    reads_t = torch.zeros((len(chunk), 768), dtype=torch.int32)
+    reads_t = torch.zeros((len(chunk), Lp), dtype=torch.int32)
     for r, (_h, s) in enumerate(chunk):
         reads_t[r, :len(s)] = torch.from_numpy(dna.encode(s).astype("int32"))
     reads_t = reads_t.to(DEVICE)
@@ -968,7 +1227,7 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
     grp = torch.tensor(group, dtype=torch.int32).to(DEVICE)
     q_t = None
     if quals:
-        q = np.full((len(chunk), 768), 255, np.uint8)
+        q = np.full((len(chunk), Lp), 255, np.uint8)
         for r, (h, _s) in enumerate(chunk):
             if h in quals:
                 q[r, :len(quals[h])] = np.minimum(quals[h], 254)
@@ -978,6 +1237,28 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
                   start_threshold=bank.start_threshold,
                   ws=bank.ribosome_window, W=bank.pwm_w, fdt=torch.float64,
                   subs=subs)
+    return bank, dev, reads_t, lens, grp, q_t, consts
+
+
+def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
+                    subs=False):
+    """Host-clock stage times (synchronised; each stage runs once untimed
+    first, so that none pays for loading its kernels) of one 2,048-read
+    chunk, in substitution mode with ``subs`` (``quals``: qualities by
+    header), KF and its twin, K3 and its twin (event DP, then traceback)
+    as separate stages; then K3 against its twin on the chunk's rows
+    (``k3_check``) and KF against its twin on the chunk (``kf_check``)
+    with the f64 and the f32 carry, recorded in K3["cases"] and
+    KF["cases"]; in substitution mode with qualities KF is also held to
+    its twin on the same chunk without them (the "subs" cases)."""
+    import torch
+
+    from glimmer_mg_torch.ops import device_predict as dpk
+    from glimmer_mg_torch.ops import event_dp, event_dp_cuda, frontend
+    from glimmer_mg_torch.ops import frontend_cuda, icm_cuda
+
+    bank, dev, reads_t, lens, grp, q_t, consts = chunk_inputs(
+        gd, reads, cmap, quals, subs)
     tables = {k: dev[k] for k in ("adj_or", "adj_dist", "adj_dist_len")}
     times = {}
 
@@ -1018,7 +1299,7 @@ def stage_breakdown(gd, reads, cmap, title="stage breakdown", quals=None,
     syncs = event_dp.last_syncs
     stage("traceback (twin)", lambda: event_dp.traceback_batched(
         ev, sc, bp, best, ne))
-    log(f"{title}, one {len(chunk)}-read chunk "
+    log(f"{title}, one {reads_t.shape[0]}-read chunk "
         "(ms, host clock, synchronised): "
         + json.dumps({k: round(v, 3) for k, v in times.items()})
         + f"; DP steps {int(ne.max())}, K3 host syncs 0, the twin's event "
@@ -2499,6 +2780,9 @@ def main(argv=None):
                     help="profile one more warm pass (device busy share)")
     ap.add_argument("--mesh-rank", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)  # one of phase 11's ranks
+    ap.add_argument("--kf-ab", action="append", default=[],
+                    metavar="NAME=PATH", help="time KF alone against the "
+                    "frontend source PATH (kf_ab), instead of the smoke")
     args = ap.parse_args(argv)
 
     import torch
@@ -2507,6 +2791,9 @@ def main(argv=None):
         raise RuntimeError("chip_smoke needs a CUDA GPU; none is available")
     if args.mesh_rank:
         mesh_rank(args.mesh_rank)
+        return
+    if args.kf_ab:
+        kf_ab(args)
         return
 
     from glimmer_mg_torch import _build

@@ -93,6 +93,25 @@ def build() -> pathlib.Path:
     return LIB_PATH
 
 
+def bind_frontend(cdll: ctypes.CDLL) -> None:
+    """Set the ctypes signatures of KF's entry points on ``cdll`` (the
+    kernel library, or a library of a frontend source alone, which
+    ``chip_smoke.py --kf-ab`` times beside it)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ll, d = ctypes.c_longlong, ctypes.c_double
+    cdll.gmt_frontend.argtypes = ([p] * 28 + [ll] + [i] * 13 + [d, d, i]
+                                  + [p] * 4 + [d] * 4 + [p])
+    cdll.gmt_frontend.restype = i
+    cdll.gmt_frontend_ws.argtypes = [i, i, i]
+    cdll.gmt_frontend_ws.restype = ll
+    cdll.gmt_frontend_smem_room.argtypes = [i, i, i]
+    cdll.gmt_frontend_smem_room.restype = i
+    cdll.gmt_frontend_occupancy.argtypes = [i, i, i, i]
+    cdll.gmt_frontend_occupancy.restype = i
+    cdll.gmt_frontend_narrow_lp.argtypes = []
+    cdll.gmt_frontend_narrow_lp.restype = i
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
@@ -110,14 +129,6 @@ def lib() -> ctypes.CDLL:
             cdll.gmt_bank_walk.restype = i
             cdll.gmt_event_dp.argtypes = [p] * 26 + [i] * 7 + [p]
             cdll.gmt_event_dp.restype = i
-            ll, d = ctypes.c_longlong, ctypes.c_double
-            cdll.gmt_frontend.argtypes = ([p] * 28 + [ll] + [i] * 13
-                                          + [d, d, i] + [p] * 4 + [d] * 4
-                                          + [p])
-            cdll.gmt_frontend.restype = i
-            cdll.gmt_frontend_ws.argtypes = [i, i, i]
-            cdll.gmt_frontend_ws.restype = ll
-            cdll.gmt_frontend_smem_room.argtypes = [i, i, i]
-            cdll.gmt_frontend_smem_room.restype = i
+            bind_frontend(cdll)
             _LIB = cdll
         return _LIB

@@ -24,21 +24,19 @@ from .event_dp_cuda import _check
 # Kernel launches (a plain count; reset by callers).
 launches = 0
 
-# Longest padded read the kernel takes: 4 Lp + 18 candidates must index as
-# int32 and the blocked prefix sum has at most 8 levels. In substitution
-# mode a candidate's sort key packs its position, tie key (< 8 Lp + 44) and
-# index (< 8 Lp + 33) into 63 bits.
+# Longest padded read the kernel takes: 8 Lp + 33 candidates must index as
+# int32 and the blocked prefix sum has at most 8 levels.
 MAX_LP = 1 << 26
-MAX_LP_SUBS = 1 << 18
 
-# Blocks an SM when a read's workspace outgrows the shared memory a block
-# may take (error-free: f64 from Lp 2,592, f32 from Lp 3,072 on an H100;
-# substitution mode: f64 from Lp 1,578, f32 from Lp 1,776) and goes to a
-# global scratch buffer instead: grid = this x SMs, each block looping over
-# reads.
-SCRATCH_BLOCKS_PER_SM = 2
-
+# A read's workspace that outgrows the shared memory it may take (the
+# kernel's smem_room: half an SM's, so that two reads share one; on an H100
+# error-free f64 from Lp 1,662, f32 from Lp 2,526; substitution mode f64
+# from Lp 1,242, f32 from Lp 1,503) goes to a global scratch buffer
+# instead: grid = the blocks an SM holds on that route (blocks_per_sm: 4
+# error-free, 3 in substitution mode) x SMs, each block looping over
+# reads. Both choices are measured at Lp 2,304 in PERF.md section 6.
 _ROOM: dict = {}
+_OCC: dict = {}
 _SMS: dict = {}
 
 _TABLES = (
@@ -57,6 +55,30 @@ def workspace_bytes(Lp: int, f64: bool, subs: bool = False) -> int:
     """Bytes of one read's working arrays in the kernel at Lp."""
     from .. import _build
     return int(_build.lib().gmt_frontend_ws(Lp, int(f64), int(subs)))
+
+
+def narrow_lp() -> int:
+    """Lp below which the kernel keeps its position scans, ids and class
+    cumsums as int16_t and its sort keys in 32 bits."""
+    from .. import _build
+    return int(_build.lib().gmt_frontend_narrow_lp())
+
+
+def blocks_per_sm(Lp: int, f64: bool, rbs: bool, subs: bool = False) -> int:
+    """Blocks (reads) of the instantiation an SM of the current device holds
+    at Lp (cudaOccupancyMaxActiveBlocksPerMultiprocessor, the workspace in
+    shared memory when it takes that route, else on the global-scratch
+    route)."""
+    key = (torch.cuda.current_device(), Lp, f64, rbs, subs)
+    if key not in _OCC:
+        from .. import _build
+        nb = _build.lib().gmt_frontend_occupancy(int(f64), int(rbs),
+                                                 int(subs), Lp)
+        if nb < 0:
+            raise RuntimeError(f"frontend kernel occupancy (cudaError "
+                               f"{-nb})")
+        _OCC[key] = nb
+    return _OCC[key]
 
 
 def _smem_room(device, f64: bool, rbs: bool, subs: bool = False) -> int:
@@ -112,9 +134,8 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
     _check("gene6", gene6, (torch.float32,), (B, 6, Lp), device)
     _check("ind6", ind6, (torch.float32,), (B, 6, Lp), device)
     subs = bool(consts.get("subs"))
-    max_lp = MAX_LP_SUBS if subs else MAX_LP
-    if Lp % 3 or Lp < 6 or Lp >= max_lp:
-        raise ValueError(f"Lp must be a multiple of 3 in [6, {max_lp}), "
+    if Lp % 3 or Lp < 6 or Lp >= MAX_LP:
+        raise ValueError(f"Lp must be a multiple of 3 in [6, {MAX_LP}), "
                          f"got {Lp}")
     if not subs:
         quals = None
@@ -169,7 +190,7 @@ def frontend(seq, n, gi, gene6, ind6, bank, Lp: int, consts, max_events,
     scratch = None
     grid = B
     if ws > _smem_room(device, f64, W > 0, subs):
-        grid = min(B, SCRATCH_BLOCKS_PER_SM * _sms(device))
+        grid = min(B, blocks_per_sm(Lp, f64, W > 0, subs) * _sms(device))
         scratch = empty((grid * ws,), torch.uint8)
     cp = plain.cp_table(device) if quals is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream

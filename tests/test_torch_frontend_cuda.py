@@ -19,6 +19,10 @@ qualities, with a quality matrix on every row, and with one on two rows
 in three (255 in the others). The call makes no host sync, bad inputs
 (bad qualities too) raise before a launch, and ``predict_batch_device``
 on CUDA launches KF once in each mode and gives the CPU run's records.
+The redesign's own checks: every instantiation holds at least 4 reads an
+SM error-free and 3 in substitution mode at Lp 768; reads padded to just
+below and to NARROW_LP (the narrow and the wide index type); a chunk in
+which every read has more than 32 events.
 """
 
 import numpy as np
@@ -393,3 +397,72 @@ def test_predict_batch_device_launches_kf(cuda, chunks, mode):
         else:
             assert np.array_equal(a, b), name
     assert outs[0][8].sum() > 20
+
+
+# ---- the Hopper redesign: occupancy, the index type's threshold, large nv
+
+@pytest.mark.parametrize("subs", [False, True], ids=["error_free", "subs"])
+@pytest.mark.parametrize("rbs", [True, False], ids=["rbs", "no_rbs"])
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+def test_kernel_blocks_per_sm_at_lp768(cuda, f64, rbs, subs):
+    """Every instantiation holds at least 4 reads an SM error-free and 3 in
+    substitution mode at the main path's Lp 768, its workspace in shared
+    memory (the kernel's target; cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    assert (frontend_cuda.workspace_bytes(768, f64, subs)
+            <= frontend_cuda._smem_room(cuda, f64, rbs, subs))
+    assert frontend_cuda.blocks_per_sm(768, f64, rbs, subs) >= (
+        3 if subs else 4)
+
+
+@pytest.fixture(scope="module")
+def threshold_chunk(trained_models):
+    """Reads of 7.7-8.1 kb, two with planted stop codons (numpy), and their
+    qualities on two reads in three."""
+    gd, classes = trained_models
+    reads = (long_reads(44, 3, lo=7700, hi=8100)
+             + planted_stop_reads(45, 2, lo=7700, hi=8100))
+    return gd, classes, reads, quality_map(reads, 46)
+
+
+@pytest.mark.parametrize("subs", [False, True], ids=["error_free", "subs"])
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+@pytest.mark.parametrize("side", ["below", "at"])
+def test_kernel_bitwise_at_narrow_index_threshold(cuda, threshold_chunk,
+                                                  side, f64, subs):
+    """Lp just below NARROW_LP (int16_t scans and ids, 32-bit sort keys) and
+    at it (int, 64-bit keys), the same reads padded to each: bitwise to the
+    twin, in substitution mode with qualities on two rows in three."""
+    gd, classes, reads, quals = threshold_chunk
+    Lp = frontend_cuda.narrow_lp() - (3 if side == "below" else 0)
+    batch = batch_inputs(reads, class_map(reads, classes, pair_every=3), gd,
+                         l_pad=Lp, b_pad=6)
+    q = None
+    if subs:
+        _m, seqs, lengths, _g = batch
+        qm = np.full(seqs.shape, 255, np.uint8)
+        for r, (h, _s) in enumerate(reads):
+            if h in quals:
+                qm[r, :lengths[r]] = np.minimum(quals[h], 254)
+        q = torch.from_numpy(qm)
+    case = Case(batch, cuda, f64=f64, subs=subs, quals=q)
+    want = case.run(frontend.frontend)
+    assert int(want[1].sum()) > 20
+    assert_bitwise(want, kernel(case))
+
+
+@pytest.mark.parametrize("subs", [False, True], ids=["error_free", "subs"])
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+def test_kernel_every_read_past_32_events(cases, f64, subs):
+    """A chunk in which every read has more than 32 valid candidates (the
+    reads of the thresholds -1e9 chunk that do, 64 of them): the ranks of
+    the sort over many keys, bitwise."""
+    case = cases("subs768" if subs else "768",
+                 quals="partial" if subs else "none", f64=f64, thresh=-1e9,
+                 subs=subs)
+    _ev, n = case.run(frontend.frontend)
+    idx = torch.nonzero(n > 32).flatten().cpu().numpy()
+    assert len(idx) >= 4
+    case = case.tiled(np.resize(idx, 64))
+    want = case.run(frontend.frontend)
+    assert bool((want[1] > 32).all())
+    assert_bitwise(want, kernel(case))
