@@ -171,12 +171,16 @@ subs_quals, each f64 and f32; each KF case also names its instantiation
 and gives its blocks an SM at the chunk's Lp, its registers and stack
 frame (cuobjdump -res-usage), its spill bytes (ptxas, when the run built
 the library) and its SASS BAR.SYNC count, null where the toolkit lacks
-cuobjdump).
+cuobjdump; each K3 case, error_free and subs_quals, f64 and f32, the
+four instantiations, gives the longest read's steps, the microseconds a
+step, the tables' length D and the same resources).
 
-``--kf-ab NAME=PATH`` runs KF alone instead (``kf_ab``): this checkout's
-csrc/frontend.cu beside another frontend source (the parent commit's,
-say), each built as a library of its own, held bitwise to the twin and
-timed in turns (A, B, B, A) at Lp 768 and 2,304, with their resources.
+``--kf-ab NAME=PATH`` runs KF alone instead (``kernel_ab``): this
+checkout's csrc/frontend.cu beside another frontend source (the parent
+commit's, say), each built as a library of its own, held bitwise to the
+twin and timed in turns (A, B, B, A) at Lp 768 and 2,304, with their
+resources. ``--k3-ab NAME=PATH`` does the same for K3 (csrc/event_dp.cu)
+on this checkout's KF's rows of the same chunks.
 
 The script imports only glimmer_mg_torch and checks at the end, after
 the bench, that no module of JAX or of glimmer_mg_tpu was loaded.
@@ -412,27 +416,37 @@ def cuda_ms(fn, reps=5):
 def kernel_ms(fn, cold=False):
     """Device milliseconds of one launch of fn (a kernel launch with no
     host sync): warm, the median over 7 runs of 20 launches back to back
-    between CUDA events (the host runs ahead, so the events see device
-    time only); cold, the median of 11 single launches, each after a
-    64 MB write and a ~0.1 ms device sleep that lets the host run ahead."""
+    between CUDA events; cold, the median of 11 single launches, each
+    after a 64 MB write. Before each run the device sleeps for 1.5x the
+    host time of the run's launches (measured once, at least ~0.1 ms), so
+    that the host has enqueued them all before the first event is reached
+    and the events see device time only, even for a wrapper whose host
+    time is longer than its kernel's."""
     import torch
 
     flush = torch.empty(16 * 2 ** 20, dtype=torch.int32, device=DEVICE)
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_s = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    n = 1 if cold else 20
+    sleep = max(200_000, int(1.5 * n * host_s * 2e9))  # cycles, <= 2 GHz
     times = []
     for k in range(11 if cold else 7):
         if cold:
             flush.fill_(k)
-            torch.cuda._sleep(200_000)
+        torch.cuda._sleep(sleep)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(1 if cold else 20):
+        for _ in range(n):
             fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / (1 if cold else 20))
+        times.append(a.elapsed_time(b) / n)
     return sorted(times)[len(times) // 2]
 
 
@@ -454,6 +468,7 @@ def ptxas_lines(source, kernel):
 
 
 KF_KERNEL = re.compile(r"frontend_kernelI([df])Lb([01])ELb([01])E([a-z])?")
+K3_KERNEL = re.compile(r"event_dp_kernelI([df])Lb([01])E")
 
 
 def kf_instantiation(name):
@@ -470,6 +485,16 @@ def kf_instantiation(name):
     return key
 
 
+def k3_instantiation(name):
+    """"f64_ef", "f32_subs", ... of a mangled event_dp_kernel name (the
+    carry, then error-free rows or rows with error records), or None."""
+    m = K3_KERNEL.search(name)
+    if not m:
+        return None
+    return (("f64" if m[1] == "d" else "f32")
+            + ("_subs" if m[2] == "1" else "_ef"))
+
+
 def cuobjdump(*argv):
     """cuobjdump's output, or None where the toolkit has none."""
     from glimmer_mg_torch import _build
@@ -482,19 +507,20 @@ def cuobjdump(*argv):
     return out.stdout if out.returncode == 0 else None
 
 
-def kf_resources(so, ptxas_log=""):
-    """KF's instantiations in the library ``so``: registers and stack
-    frame (cuobjdump -res-usage, else ptxas), ptxas's spill stores and
-    loads (when ``ptxas_log`` has the build), and the static counts of
-    BAR.SYNC, LDL and STL in the SASS (cuobjdump -sass); None where a
-    tool or log is missing."""
+def kernel_resources(so, ptxas_log="", key=kf_instantiation):
+    """The instantiations of one kernel in the library ``so``, named by
+    ``key`` (``kf_instantiation`` or ``k3_instantiation``, None for other
+    kernels): registers and stack frame (cuobjdump -res-usage, else
+    ptxas), ptxas's spill stores and loads (when ``ptxas_log`` has the
+    build), and the static counts of BAR.SYNC, LDL and STL in the SASS
+    (cuobjdump -sass); None where a tool or log is missing."""
     res = collections.defaultdict(lambda: dict.fromkeys(
         ("regs", "stack_bytes", "spill_bytes", "bar_sync", "ldl", "stl")))
     fn = None
     for line in ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fn = kf_instantiation(m[1])
+            fn = key(m[1])
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -508,7 +534,7 @@ def kf_resources(so, ptxas_log=""):
     for line in usage.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            fn = kf_instantiation(m[1])
+            fn = key(m[1])
             continue
         m = re.search(r"REG:(\d+) STACK:(\d+)", line)
         if m and fn:
@@ -518,22 +544,22 @@ def kf_resources(so, ptxas_log=""):
     for line in (sass or "").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = kf_instantiation(m[1])
+            fn = key(m[1])
             if fn:
                 res[fn].update(bar_sync=0, ldl=0, stl=0)
             continue
         if fn:
-            for key, pat in (("bar_sync", r"\bBAR\.SYNC"),
-                             ("ldl", r"\bLDL\b"), ("stl", r"\bSTL\b")):
+            for k, pat in (("bar_sync", r"\bBAR\.SYNC"),
+                           ("ldl", r"\bLDL\b"), ("stl", r"\bSTL\b")):
                 if re.search(pat, line):
-                    res[fn][key] += 1
+                    res[fn][k] += 1
     return dict(res)
 
 
 @contextlib.contextmanager
-def kf_library(cdll):
-    """KF's wrapper launching from ``cdll`` (a library of a frontend
-    source) for the duration."""
+def ab_library(cdll):
+    """The kernel wrappers launching from ``cdll`` (a library of one
+    kernel source, KF's or K3's) for the duration."""
     from glimmer_mg_torch import _build
     from glimmer_mg_torch.ops import frontend_cuda
 
@@ -549,54 +575,60 @@ def kf_library(cdll):
         frontend_cuda._OCC.clear()
 
 
-def kf_ab(args):
-    """--kf-ab NAME=PATH (repeatable): KF alone, the library of this
-    checkout's csrc/frontend.cu ("this") beside one of each named frontend
-    source, each built alone (nvcc, the build's flags, all at once) and
-    launched through this checkout's wrapper. The chunks: phase 5's and
-    phase 7's 2,048 reads at Lp 768, and 2,048 reads of 1,100-2,250 bp
-    from the same genomes at Lp 2,304 (the card tests' long shape, where
-    workspaces outgrow the shared memory they may take), each in the six
-    cases of the kernels line (and error-free f64 with the RBS term off at
-    Lp 768). Every library is held bitwise to the twin in every case, then
-    timed (``kernel_ms``) in the order of the libraries and in reverse (A,
-    B, B, A), with each instantiation's resources (``kf_resources``) and,
-    per case, its workspace, the room it may take in shared memory and its
-    blocks an SM. Prints the record as one JSON line; raises, after it, if
-    a library differs from the twin."""
+# --kf-ab / --k3-ab: the kernel's source in csrc, the binder of its C
+# entries in _build, the namer of its instantiations
+AB_KERNELS = {"kf": ("frontend.cu", "bind_frontend", kf_instantiation),
+              "k3": ("event_dp.cu", "bind_event_dp", k3_instantiation)}
+
+
+def ab_libraries(kind, sources):
+    """This checkout's source of kernel ``kind`` ("this") and each
+    NAME=PATH of ``sources``, each built alone into a library of its own
+    (nvcc with the build's flags, all at once), bound and loaded, with
+    each instantiation's resources (``kernel_resources``)."""
     import ctypes
 
-    import torch
-
     from glimmer_mg_torch import _build
-    from glimmer_mg_torch.ops import device_predict as dpk
-    from glimmer_mg_torch.ops import frontend, frontend_cuda, icm_cuda
 
-    specs = [("this", str(_build.CSRC_DIR / "frontend.cu"))]
-    specs += [tuple(x.split("=", 1)) for x in args.kf_ab]
-    out_dir = _build.BUILD_DIR / "kf_ab"
+    source, binder, key = AB_KERNELS[kind]
+    specs = [("this", str(_build.CSRC_DIR / source))]
+    specs += [tuple(x.split("=", 1)) for x in sources]
+    out_dir = _build.BUILD_DIR / f"{kind}_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     t0 = time.perf_counter()
     logs = _build._run([[nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v",
                          "-shared", "-o", str(out_dir / f"{n}.so"), src]
                         for n, src in specs])
-    log(f"kf-ab: {len(logs)} libraries built in "
+    log(f"{kind}-ab: {len(logs)} libraries built in "
         f"{time.perf_counter() - t0:.1f} s")
-    _build.build()
-    _build.lib()
     libs = {}
     for (name, src), text in zip(specs, logs):
         so = str(out_dir / f"{name}.so")
         cdll = ctypes.CDLL(so)
-        _build.bind_frontend(cdll)
+        getattr(_build, binder)(cdll)
         libs[name] = {"source": src, "cdll": cdll,
-                      "resources": kf_resources(so, text), "cases": {}}
-        for key, r in sorted(libs[name]["resources"].items()):
-            log(f"kf-ab {name} {key}: {json.dumps(r)}")
+                      "resources": kernel_resources(so, text, key),
+                      "cases": {}}
+        for k, r in sorted(libs[name]["resources"].items()):
+            log(f"{kind}-ab {name} {k}: {json.dumps(r)}")
+    return libs
+
+
+def ab_chunks(args):
+    """The A/B harness's chunks: phase 5's and phase 7's 2,048 reads at
+    Lp 768, and 2,048 reads of 1,100-2,250 bp from the same genomes at Lp
+    2,304 (the card tests' long shape), each in the six cases of the
+    kernels line (and error-free f64 with the RBS term off at Lp 768):
+    case name -> (the frontend's arguments, its qualities or None, the
+    bank's tables on the card)."""
+    import torch
+
+    from glimmer_mg_torch.ops import device_predict as dpk
+    from glimmer_mg_torch.ops import icm_cuda
 
     cases = {}
-    with tempfile.TemporaryDirectory(prefix="gmt_kf_ab_") as root:
+    with tempfile.TemporaryDirectory(prefix="gmt_ab_") as root:
         gd, genomes = build_database(root, args.genome_kb, args.seed)
         for Lp, lengths in ((768, (300, 500, 700)),
                             (2304, (1100, 1700, 2250))):
@@ -623,43 +655,106 @@ def kf_ab(args):
                 if mode == "error_free" and Lp == 768:
                     cases["error_free_f64_norbs_lp768"] = (
                         fargs + (dict(consts, W=0), dpk.MAX_EVENTS), None)
+    return cases
 
-    names = [n for n, _src in specs]
+
+def kf_ab_case(fargs, q):
+    """KF's case in the A/B harness: (the wrapper call, the twin's
+    output, how a library's output differs from it, the case's facts)."""
+    import torch
+
+    from glimmer_mg_torch.ops import frontend, frontend_cuda
+
     device = torch.device(DEVICE, torch.cuda.current_device())
-    for cname, (fargs, q) in cases.items():
-        want = frontend.frontend(*fargs, quals=q)
-        Lp, consts = fargs[6], fargs[7]
-        f64 = consts["fdt"] == torch.float64
-        rbs, subs = consts["W"] > 0, bool(consts.get("subs"))
+    want = frontend.frontend(*fargs, quals=q)
+    Lp, consts = fargs[6], fargs[7]
+    f64 = consts["fdt"] == torch.float64
+    rbs, subs = consts["W"] > 0, bool(consts.get("subs"))
+    info = {"n_events": int(want[1].sum()),
+            "ws_bytes": frontend_cuda.workspace_bytes(Lp, f64, subs),
+            "smem_room": frontend_cuda._smem_room(device, f64, rbs, subs),
+            "blocks_per_sm": frontend_cuda.blocks_per_sm(Lp, f64, rbs, subs)}
+    return (lambda: frontend_cuda.frontend(*fargs, quals=q),
+            lambda got: kf_differs(want, got), info)
+
+
+def k3_ab_case(fargs, q):
+    """K3's case in the A/B harness: its rows are this checkout's KF's on
+    the chunk (the main path's), its twin ``event_dp.event_dp_traceback``;
+    the facts: the longest read's steps, E, D, the events, and the
+    wrapper's host milliseconds (synchronised; the wrapper is this
+    checkout's for every library)."""
+    import torch
+
+    from glimmer_mg_torch.ops import device_predict as dpk
+    from glimmer_mg_torch.ops import event_dp, event_dp_cuda, frontend_cuda
+
+    grp, dev, consts = fargs[2], fargs[5], fargs[7]
+    ev, n = frontend_cuda.frontend(*fargs, quals=q)
+    ne = torch.clamp(n, max=dpk.MAX_EVENTS)
+    tables = {k: dev[k] for k in ("adj_or", "adj_dist", "adj_dist_len")}
+    k3args = (ev, tables, grp, consts, ne)
+    want = event_dp.event_dp_traceback(
+        ev, event_dp._prefetch_adj(dev, grp), consts, ne)
+
+    def call():
+        return event_dp_cuda.event_dp_traceback(*k3args)
+
+    def synced():
+        call()
+        torch.cuda.synchronize()
+    synced()
+    info = {"steps": int(ne.max()), "E": ev["pos"].shape[1],
+            "D": tables["adj_dist"].shape[-1], "n_events": int(ne.sum()),
+            "wrapper_host_ms": host_ms(synced, reps=21)}
+    return call, lambda got: k3_differs(want, got), info
+
+
+def kernel_ab(kind, sources, args):
+    """--kf-ab / --k3-ab NAME=PATH (repeatable): KF or K3 alone, the
+    library of this checkout's source ("this") beside one of each named
+    source (``ab_libraries``), each launched through this checkout's
+    wrapper on the chunks of ``ab_chunks`` (K3 on this checkout's KF's
+    rows of them, without the RBS-off case). Every library is held
+    bitwise to the twin in every case, then timed (``kernel_ms``) in the
+    order of the libraries and in reverse (A, B, B, A). Prints the record
+    as one JSON line; raises, after it, if a library differs from the
+    twin."""
+    import torch
+
+    from glimmer_mg_torch import _build
+
+    libs = ab_libraries(kind, sources)
+    _build.build()
+    _build.lib()
+    names = list(libs)
+    for cname, (fargs, q) in ab_chunks(args).items():
+        if kind == "k3" and "norbs" in cname:
+            continue
+        call, differs, info = (kf_ab_case if kind == "kf"
+                               else k3_ab_case)(fargs, q)
         for name in names:
-            with kf_library(libs[name]["cdll"]):
-                got = frontend_cuda.frontend(*fargs, quals=q)
+            with ab_library(libs[name]["cdll"]):
+                got = call()
                 torch.cuda.synchronize()
-                libs[name]["cases"][cname] = {
-                    "differs": kf_differs(want, got), "ms": [],
-                    "n_events": int(want[1].sum()),
-                    "ws_bytes": frontend_cuda.workspace_bytes(Lp, f64, subs),
-                    "smem_room": frontend_cuda._smem_room(device, f64, rbs,
-                                                          subs),
-                    "blocks_per_sm": frontend_cuda.blocks_per_sm(
-                        Lp, f64, rbs, subs)}
-        del want, got
+                libs[name]["cases"][cname] = {"differs": differs(got),
+                                              "ms": [], **info}
+            del got
         for name in names + names[::-1]:
-            with kf_library(libs[name]["cdll"]):
-                libs[name]["cases"][cname]["ms"].append(kernel_ms(
-                    lambda: frontend_cuda.frontend(*fargs, quals=q)))
-        log(f"kf-ab {cname}: " + ", ".join(
+            with ab_library(libs[name]["cdll"]):
+                libs[name]["cases"][cname]["ms"].append(kernel_ms(call))
+        log(f"{kind}-ab {cname}: " + ", ".join(
             f"{n} {libs[n]['cases'][cname]['ms']}"
             + ("" if libs[n]["cases"][cname]["differs"] is None
                else f" DIFFERS ({libs[n]['cases'][cname]['differs']})")
-            for n in names) + f" [{gpu_line()}]")
+            for n in names) + f"; {json.dumps(info)} [{gpu_line()}]")
     for rec in libs.values():
         del rec["cdll"]
     print(gpu_line())
-    print(json.dumps({"kf_ab": libs}))
+    print(json.dumps({f"{kind}_ab": libs}))
     bad = [(n, c) for n in names for c, r in libs[n]["cases"].items()
            if r["differs"] is not None]
-    assert not bad, f"KF differs from its twin: {bad}"
+    assert not bad, f"{kind.upper()} differs from its twin: {bad}"
 
 
 def sixframe_phase(gd, genomes, seed):
@@ -1006,10 +1101,54 @@ def k3_bytes(ev, tables, B):
     return inputs + outputs
 
 
+K3_OUT = ("score bp best wovf g_id g_stop g_len g_sign g_trunc g_score "
+          "g_epos g_etyp cnt").split()
+
+
+def k3_differs(want, got):
+    """The first of K3's outputs (``K3_OUT``) that is not bitwise equal to
+    the twin's, or None."""
+    import torch
+
+    for name, a, b in zip(K3_OUT, want, got):
+        if a.dtype.is_floating_point:
+            iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+            a, b = a.view(iv), b.view(iv)
+        if a.shape != b.shape or not torch.equal(a, b):
+            return name
+    return None
+
+
+_K3_RESOURCES: dict = {}
+
+
+def k3_case_resources(ev):
+    """The instantiation K3 runs on event rows ``ev`` and, from the kernel
+    library of this run (``kernel_resources``), its registers, stack
+    frame, spill bytes (when this process built the library) and SASS
+    BAR.SYNC count."""
+    import torch
+
+    from glimmer_mg_torch import _build
+
+    if not _K3_RESOURCES:
+        _K3_RESOURCES.update(kernel_resources(
+            str(_build.LIB_PATH), _build.build_log.get("event_dp", ""),
+            k3_instantiation))
+    key = (("f64" if ev["score"].dtype == torch.float64 else "f32")
+           + ("_subs" if ev.get("err_pos") is not None else "_ef"))
+    res = _K3_RESOURCES.get(key, {})
+    return {"instantiation": key,
+            **{k: res.get(k) for k in ("regs", "stack_bytes", "spill_bytes",
+                                       "bar_sync")}}
+
+
 def k3_check(title, ev, dev, grp, consts, ne):
     """K3 against its twin on one chunk's rows: bitwise on every output,
     no host sync (the call runs under sync debug mode "error"), its device
-    time (CUDA events) and the twin's; returns K3's case record."""
+    time (CUDA events), the longest read's steps and microseconds a step,
+    the twin's time, the instantiation's resources; returns K3's case
+    record."""
     import torch
 
     from glimmer_mg_torch.ops import event_dp, event_dp_cuda
@@ -1027,11 +1166,8 @@ def k3_check(title, ev, dev, grp, consts, ne):
     adj = event_dp._prefetch_adj(dev, grp)
     want = event_dp.event_dp_traceback(ev, adj, consts, ne)
     syncs = event_dp.last_syncs
-    for a, b in zip(want, got):
-        if a.dtype.is_floating_point:
-            iv = torch.int64 if a.dtype == torch.float64 else torch.int32
-            a, b = a.view(iv), b.view(iv)
-        assert torch.equal(a, b), f"K3 differs from its twin ({title})"
+    bad = k3_differs(want, got)
+    assert bad is None, f"K3 {bad} differs from its twin ({title})"
     diff = (want[0] - got[0]).abs()
     diff = diff[torch.isfinite(diff)]
     err = float(diff.max()) if diff.numel() else 0.0
@@ -1041,13 +1177,16 @@ def k3_check(title, ev, dev, grp, consts, ne):
     nbytes = k3_bytes(ev, tables, ne.shape[0])
     bound_ms, by = bound(nbytes, 0)
     steps = int(ne.max())
+    res = {"steps": steps, "us_per_step": ms * 1e3 / max(steps, 1),
+           "D": tables["adj_dist"].shape[-1], **k3_case_resources(ev)}
     log(f"K3 {title}: B {ne.shape[0]} x E {ev['pos'].shape[1]}, "
         f"{steps} steps; bitwise equal to its twin, K3 host syncs 0 (sync "
         f"debug mode error), the twin's {syncs}; K3 {ms:.4f} ms (device, "
         f"CUDA events), twin {plain:.4f} ms; bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.3f} MB over 3.35 TB/s) [{gpu_line()}]")
+        f"({nbytes / 1e6:.3f} MB over 3.35 TB/s); {json.dumps(res)} "
+        f"[{gpu_line()}]")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": by, "max_abs_err": err, "steps": steps}
+            "bound_by": by, "max_abs_err": err, **res}
 
 
 # K3's records: its launches on each path (phases fill "paths") and its
@@ -1084,7 +1223,7 @@ _KF_RESOURCES: dict = {}
 def kf_case_resources(args):
     """The instantiation KF runs on a chunk (``args`` the frontend's
     arguments): its blocks an SM at the chunk's Lp and, from the kernel
-    library of this run (``kf_resources``), its registers, stack frame,
+    library of this run (``kernel_resources``), its registers, stack frame,
     spill bytes (when this process built the library) and SASS
     BAR.SYNC count."""
     import torch
@@ -1093,7 +1232,7 @@ def kf_case_resources(args):
     from glimmer_mg_torch.ops import frontend_cuda
 
     if not _KF_RESOURCES:
-        _KF_RESOURCES.update(kf_resources(
+        _KF_RESOURCES.update(kernel_resources(
             str(_build.LIB_PATH), _build.build_log.get("frontend", "")))
     Lp, consts = args[6], args[7]
     f64, rbs = consts["fdt"] == torch.float64, consts["W"] > 0
@@ -2782,7 +2921,10 @@ def main(argv=None):
                     help=argparse.SUPPRESS)  # one of phase 11's ranks
     ap.add_argument("--kf-ab", action="append", default=[],
                     metavar="NAME=PATH", help="time KF alone against the "
-                    "frontend source PATH (kf_ab), instead of the smoke")
+                    "frontend source PATH (kernel_ab), instead of the smoke")
+    ap.add_argument("--k3-ab", action="append", default=[],
+                    metavar="NAME=PATH", help="time K3 alone against the "
+                    "event-DP source PATH (kernel_ab), instead of the smoke")
     args = ap.parse_args(argv)
 
     import torch
@@ -2792,8 +2934,9 @@ def main(argv=None):
     if args.mesh_rank:
         mesh_rank(args.mesh_rank)
         return
-    if args.kf_ab:
-        kf_ab(args)
+    if args.kf_ab or args.k3_ab:
+        kernel_ab("kf" if args.kf_ab else "k3", args.kf_ab or args.k3_ab,
+                  args)
         return
 
     from glimmer_mg_torch import _build

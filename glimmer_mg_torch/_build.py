@@ -112,6 +112,15 @@ def bind_frontend(cdll: ctypes.CDLL) -> None:
     cdll.gmt_frontend_narrow_lp.restype = i
 
 
+def bind_event_dp(cdll: ctypes.CDLL) -> None:
+    """Set the ctypes signature of K3's entry point on ``cdll`` (the
+    kernel library, or a library of an event-DP source alone, which
+    ``chip_smoke.py --k3-ab`` times beside it)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    cdll.gmt_event_dp.argtypes = [p] * 26 + [i] * 7 + [p]
+    cdll.gmt_event_dp.restype = i
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
@@ -127,8 +136,7 @@ def lib() -> ctypes.CDLL:
             cdll.gmt_bank_walk.argtypes = ([p] * 7 + [i] * 9
                                            + [ctypes.c_float, p])
             cdll.gmt_bank_walk.restype = i
-            cdll.gmt_event_dp.argtypes = [p] * 26 + [i] * 7 + [p]
-            cdll.gmt_event_dp.restype = i
+            bind_event_dp(cdll)
             bind_frontend(cdll)
             _LIB = cdll
         return _LIB

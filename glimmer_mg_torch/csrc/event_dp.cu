@@ -11,41 +11,75 @@
 // event rows in, score/bp and the gene records out), 4-6 microseconds at
 // 3.35 TB/s. The DP is a chain of dependent steps per read (one per
 // event, up to 160), each a few warp-wide scans and reductions plus two
-// serial pointer walks, so the kernel is held back by the latency of that
-// chain, not by memory or arithmetic throughput.
-//
-// Design: one warp per read, WARPS reads a block. The read's event rows
-// (pos, typ, sub, id, err_pos) and its state (score, bp, disq, best) live
-// in shared memory; its group's adjacency tables are read from the bank
-// (a few entries a step, cached). Each read loops over its own
-// events e < ne[b]: rows at e >= ne[b] are typ == 0 padding, on which a
-// step of the twin's batch-wide loop changes nothing. The traceback's
-// chain stops where the twin's does: at a negative index or after
-// max(ne) steps, the batch's bound, which each block reads from ne. Lane-parallel: the
-// E-wide opener scan, the same-id maxima, the 48-row re-link window and
-// the full-row successor propagation. One lane: the disqualify/requalify
-// chain walks (bounded at E, as in the twin) and the traceback's chain.
+// serial pointer walks, so the kernel is held back by the length of that
+// chain, not by memory or arithmetic throughput. The design shortens the
+// chain:
+//  * One warp per read, WARPS reads a block, the whole batch in one wave
+//    at the main path's B = 2,048. The read's event rows (pos, typ, sub,
+//    id, trunc, err_pos, err_typ) and its state (score, bp, disq, best)
+//    live in shared memory from the start. The group's AdjDist tables
+//    (3 x D f32) are read through the read-only cache: at the smoke's
+//    D = 1,050, 12.6 KB a read, staging them in shared memory cut a
+//    2,048-read chunk's blocks an SM from 7 to 2 and measured 1.2-1.4x
+//    slower.
+//  * Each lane loop runs over what it can touch. The opener's candidate
+//    pass and the same-id pass run over the processed rows j < e, the
+//    re-link snapshot computes the adjacency only for re-link candidates,
+//    and the row-window check is a running maximum of pos below the
+//    window (integer, so any(pos_e - pos[j] <= c) is pos_e - max pos[j] <=
+//    c). Both are exact on the twin's input domain: sub in [0, 5] on every
+//    row below the batch's bound (the twin gathers best at sub, which
+//    raises outside it; KF's subs are 0-5) and |pos| < 2^30 (KF's are
+//    below Lp). A row j >= e is then neither a between nor an extra
+//    candidate, so it offers -inf at a rank above the init slot's 0 and
+//    cannot win, and no difference of positions overflows.
+//  * Warp reductions are REDUX instructions on order-preserving integer
+//    keys, not shuffle trees: the opener's lexicographic best (value,
+//    rank, position) takes three; the same-id maxima, one pass of (value,
+//    largest index) a lane, take two for an f64 maximum (one for f32) and
+//    one for the index at it.
+//  * The re-link's successor propagation and window update are one pass
+//    over the window rows (a successor of a window row lies above it, so
+//    in the window; each lane adds to its own rows, in the twin's order),
+//    and lane 0's
+//    writes of score[e]/bp[e] share the tail that writes best: three warp
+//    barriers a closing step, one an opening step. best[i], its type and
+//    m_i (the last non-REV_START row of sub i at or before it) are kept in
+//    every lane's registers, so an opening step reads no state but rows.
+//  * The traceback is lane 0's pointer chase over the shared rows; it
+//    writes the gene records into a shared 48-row buffer (the re-link
+//    window's, free by then), which the warp stores coalesced.
+//  * The twin runs the traceback to max(min(ne, E)) over the batch, which
+//    bounds a chain only where the predecessor graph has a cycle (an
+//    acyclic chain visits at most the read's own min(ne, E) rows). A read
+//    chases to its own bound, and only a chain still live there scans ne
+//    for the batch's. Likewise only a read with no step of its own scans
+//    ne, for whether the batch's loop runs at all (the -0 rule below).
 // No host sync, no device-side assert, no allocation.
 //
 // Where bitwise equality is at risk, and what the code does about it:
 //  * Order and type of float operations follow the twin: the opener
 //    candidate is (score + (S)or) + (S)dist rounded to f32; the re-link's
 //    old_adj = oo + od and new_adj = or + dist are f32, diff =
-//    (score_e - needed) + (S)(new_adj - old_adj). Reductions across lanes
-//    are max, min and argmax only, never a float sum, and there is no
-//    multiplication, so FMA contraction cannot change a result. Build
-//    without --use_fast_math.
+//    (score_e - needed) + (S)(new_adj - old_adj); a row that both follows
+//    an updated window row and is one adds the two differences in that
+//    order. Reductions across lanes are max, min and argmax only, never a
+//    float sum, and there is no multiplication, so FMA contraction cannot
+//    change a result. Build without --use_fast_math.
 //  * Ties: the opener winner is the largest f32 candidate, then the
 //    smallest rank, then the first in the twin's concatenation order (rows
 //    by index, the init slot, the six extra-init slots); ranks are built
 //    as in _opener_best. w_fs and p_rs take the largest index. A NaN
 //    candidate makes the maximum NaN and the winner index 0, as
-//    torch.amax/argmax do.
-//  * Order within a step: write score[e], bp[e]; disqualify walk from
-//    bp[p_rs]; update best; snapshot the window (needed, bptyp, bppos,
-//    upd, diff) before any write; propagate to successors over the row;
-//    add to the window; write bp in the window; requalify walk from the
-//    updated bp[p_rs]. A __syncwarp separates the phases.
+//    torch.amax/argmax do; a NaN among the same-id scores makes m_fs NaN
+//    and w_fs -1.
+//  * Order within a step: score[e], bp[e] written; disqualify walk from
+//    bp[p_rs]; best updated; the window (needed, bptyp, bppos, upd, diff)
+//    snapshotted before any write; successors and window rows updated;
+//    requalify walk from the updated bp[p_rs]. A __syncwarp separates the
+//    phases. Lane 0's write of score[e]/bp[e] comes after a full-warp
+//    reduction that every lane reaches after its reads of them (row e is
+//    not written before step e, so those reads see the loaded values).
 //  * Signed zeros: every step of the twin adds +0 to every score, which
 //    turns -0 into +0; the kernel does it once when the rows are loaded
 //    (when the batch's loop runs at all), after which no -0 can arise.
@@ -63,7 +97,7 @@ constexpr int FWD_START = 1, FWD_STOP = 2, REV_START = 3, REV_STOP = 4;
 constexpr int WINDOW_ROWS = 48;
 constexpr int MAX_GENES = 48;
 constexpr int BIG = 1 << 29;
-constexpr int WARPS = 4;  // reads (warps) a block
+constexpr int WARPS = 4;          // reads (warps) a block
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
@@ -100,30 +134,41 @@ __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-// Shared memory of one warp (one read).
+// The 48-row buffer of a warp: the re-link window's (diff, sub, upd)
+// during the DP, the gene records' (score, six int fields, trunc) in the
+// traceback.
+template <typename S>
+__host__ __device__ inline size_t win_bytes() {
+  return align16((sizeof(S) + 6 * 4 + 1) * (size_t)WINDOW_ROWS);
+}
+
+// Shared memory of one warp (one read) without the tables: score, the
+// int rows (bp, pos, typ, sub, id, err_pos, err_typ) and best, the byte
+// rows (disq, trunc), the 48-row buffer.
 template <typename S>
 __host__ __device__ inline size_t warp_bytes(int E) {
-  return align16(sizeof(S) * (size_t)(E + WINDOW_ROWS))  // score, diff_w
-         + align16(4 * (size_t)(6 * E + WINDOW_ROWS + 8))  // ints
-         + align16((size_t)(E + WINDOW_ROWS));             // disq, upd_w
+  return align16(sizeof(S) * (size_t)E) + align16(4 * (size_t)(7 * E + 8)) +
+         align16(2 * (size_t)E) + win_bytes<S>();
 }
 
 template <typename S>
 struct Read {
   S* score;
-  S* diff_w;
   int* bp;
   int* pos;
   int* typ;
   int* sub;
   int* eid;
   int* errp;
-  int* sub_w;
+  int* etyp;
   int* best;
-  const float* tab;  // the group's (3, D) AdjDist tables, in device memory
   uint8_t* disq;
+  uint8_t* trunc;
+  // the 48-row buffer, as the re-link window
+  S* diff_w;
+  int* sub_w;
   uint8_t* upd_w;
-  // adjacency of the read's group
+  const float* tab;  // the group's (3, D) AdjDist tables, in the bank
   float ao0, ao1, ao2, ao3, satv0, satv1, satv2;
   int dl0, dl1, dl2, D, E, max_olap;
 };
@@ -153,9 +198,9 @@ template <typename S>
 __device__ inline float adj_dist(const Read<S>& r, int ti, int dist) {
   const int dl = ti == 0 ? r.dl0 : (ti == 1 ? r.dl1 : r.dl2);
   const int idx = dist + r.max_olap;
-  const bool ok = idx >= 0 && idx < dl;
-  const int ie = ok ? clampi(idx, 0, r.D - 1) : clampi(dl - 1, 0, r.D - 1);
-  return r.tab[ti * r.D + ie];
+  if (!(idx >= 0 && idx < dl)) return adj_sat(r, ti);  // tab[dl-1]
+  const int at = ti * r.D + clampi(idx, 0, r.D - 1);
+  return __ldg(r.tab + at);
 }
 
 // Disqualify/Requalify chain walk (glimmer_base.cc:437-458, 2463-2480),
@@ -183,26 +228,58 @@ __device__ inline bool better(const Cand& a, const Cand& b) {
          (a.v == b.v && (a.rank < b.rank || (a.rank == b.rank && a.at < b.at)));
 }
 
-__device__ inline Cand warp_best(Cand c) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    Cand d;
-    d.v = __shfl_xor_sync(FULL, c.v, o);
-    d.rank = __shfl_xor_sync(FULL, c.rank, o);
-    d.at = __shfl_xor_sync(FULL, c.at, o);
-    if (better(d, c)) c = d;
-  }
-  return c;
+// Order-preserving unsigned keys of non-NaN floats. -0 keys below +0: the
+// opener adds +0 to its candidates first, and no score is -0 (the
+// signed-zero rule above).
+__device__ inline unsigned okey(float v) {
+  const unsigned u = __float_as_uint(v);
+  return u & 0x80000000u ? ~u : u | 0x80000000u;
 }
 
-template <typename S>
-__device__ inline S warp_max(S v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const S w = __shfl_xor_sync(FULL, v, o);
-    v = w > v ? w : v;
-  }
-  return v;
+__device__ inline float from_okey(unsigned k) {
+  return __uint_as_float(k & 0x80000000u ? k & 0x7fffffffu : ~k);
+}
+
+__device__ inline unsigned long long okey(double v) {
+  const unsigned long long u = __double_as_longlong(v);
+  return u >> 63 ? ~u : u | (1ull << 63);
+}
+
+// The lexicographic best of the lanes' candidates: the largest value
+// (NaN apart), then the smallest rank, then the smallest position; three
+// warp reductions.
+__device__ inline Cand warp_best(Cand c) {
+  const unsigned key = okey(c.v + 0.0f);  // -0 ties +0, as == does
+  const unsigned k = __reduce_max_sync(FULL, key);
+  const bool at_max = key == k;
+  const int rank = __reduce_min_sync(FULL, at_max ? c.rank : 0x7fffffff);
+  const int at = __reduce_min_sync(
+      FULL, at_max && c.rank == rank ? c.at : 0x7fffffff);
+  return Cand{from_okey(k), rank, at};
+}
+
+// The warp's largest value (no NaN) and, where the lane's own value is
+// it, true: two 32-bit reductions for a double, one for a float.
+__device__ inline float warp_max(float v, bool* mine) {
+  const unsigned k = __reduce_max_sync(FULL, okey(v));
+  *mine = okey(v) == k;
+  return from_okey(k);
+}
+
+__device__ inline double warp_max(double v, bool* mine) {
+  const unsigned long long key = okey(v);
+  const unsigned hi = __reduce_max_sync(FULL, (unsigned)(key >> 32));
+  const unsigned lo = __reduce_max_sync(
+      FULL, (unsigned)(key >> 32) == hi ? (unsigned)key : 0u);
+  const unsigned long long k = (unsigned long long)hi << 32 | lo;
+  *mine = key == k;
+  return __longlong_as_double(
+      (long long)(k >> 63 ? k & ~(1ull << 63) : ~k));
+}
+
+// int32 arithmetic that wraps, as the twin's int32 tensors do.
+__device__ inline int wrap_rank(int sj, int E, int off) {
+  return (int)((unsigned)(sj + 1) * (unsigned)(2 * E) + (unsigned)off);
 }
 
 // The opener candidate of row j for event e, f32 (_opener_best's cand_f32).
@@ -218,57 +295,53 @@ __device__ inline float opener_cand(const Read<S>& r, int j, bool succ_e,
   return (float)((r.score[j] + (S)orr) + (S)di);
 }
 
+// The best events of the six frame classes, kept warp-uniform in every
+// lane's registers beside the shared copy lane 0 writes: best[i], its
+// type, and m_i, the last non-REV_START row of sub i at or before best[i]
+// (the twin's m_i, a function of best[i] alone, set when best[i] is).
+struct Best {
+  int at[6], typ[6], m[6];
+};
+
 // Best predecessor of a FWD_START/REV_STOP event e (_opener_best): the
-// maximum f32 candidate and the winner's index. All lanes, uniform result.
+// maximum f32 candidate and the winner's index, over the processed rows
+// j < e. All lanes, uniform result.
 template <typename S>
-__device__ void opener_best(const Read<S>& r, int e, int te, int pos_e,
-                            int wlo, int W, int lane, float* m_out,
+__device__ void opener_best(const Read<S>& r, const Best& bs, int e, int te,
+                            int pos_e, int wlo, int W, int lane, float* m_out,
                             int* w_out) {
   const int E = r.E;
   const bool succ_e = te == FWD_START;
-  int bst[6], btyp[6], mloc[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    bst[i] = r.best[i];
-    btyp[i] = bst[i] >= 0 ? r.typ[clampi(bst[i], 0, E - 1)] : -1;
-    mloc[i] = -1;
-  }
-  // m_i: the last processed non-REV_START row of sub i at or before best[i]
-  for (int j = lane; j < e; j += 32) {
-    const int sj = r.sub[j];
-    if (r.typ[j] == REV_START) continue;
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-      if (sj == i && j <= bst[i]) mloc[i] = j;
-  }
-  int m6[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) m6[i] = __reduce_max_sync(FULL, mloc[i]);
-
   const float NEG_INF = -INFINITY;
+  // the init slot (rank 0, index best[0]), ahead of the pass so that its
+  // table read overlaps it
+  const int b0 = bs.at[0];
+  const float init =
+      b0 >= 0 ? opener_cand(r, clampi(b0, 0, E - 1), succ_e, pos_e, wlo, W)
+              : 0.0f;
   Cand c{NEG_INF, 0x7fffffff, 0x7fffffff};
   bool nan = false;
-  for (int j = lane; j < E; j += 32) {
+#pragma unroll 2
+  for (int j = lane; j < e; j += 32) {
     const int tj = r.typ[j], sj = r.sub[j];
     const S sc = r.score[j];
-    const bool processed = j < e;
-    int bsub = bst[0];
+    int bsub = bs.at[0];
 #pragma unroll
     for (int i = 1; i < 6; ++i)
-      if (sj == i) bsub = bst[i];
-    const bool between = processed && (tj == FWD_STOP || tj == REV_START) &&
-                         sc > S(0) && j > bsub;
+      if (sj == i) bsub = bs.at[i];
+    const bool between =
+        (tj == FWD_STOP || tj == REV_START) && sc > S(0) && j > bsub;
     bool extra = false;
 #pragma unroll
     for (int i = 0; i < 6; ++i)
-      extra |= btyp[i] == FWD_STOP
-                   ? j == bst[i]
-                   : (btyp[i] == REV_START && processed && sj == i &&
-                      j <= bst[i] && j > m6[i]);
-    const int rank = between ? (sj + 1) * (2 * E) + (E - j)
-                             : (sj + 1) * (2 * E) + E + (E - j);
-    const float v =
-        (between || extra) ? opener_cand(r, j, succ_e, pos_e, wlo, W) : NEG_INF;
+      extra |= bs.typ[i] == FWD_STOP
+                   ? j == bs.at[i]
+                   : (bs.typ[i] == REV_START && sj == i &&
+                      j <= bs.at[i] && j > bs.m[i]);
+    const int rank = wrap_rank(sj, E, between ? E - j : 2 * E - j);
+    // read for every row, so that the table read starts with the row's
+    const float cand = opener_cand(r, j, succ_e, pos_e, wlo, W);
+    const float v = between || extra ? cand : NEG_INF;
     if (v != v) {
       nan = true;
     } else {
@@ -278,20 +351,22 @@ __device__ void opener_best(const Read<S>& r, int e, int te, int pos_e,
   }
   c = warp_best(c);
   nan = __any_sync(FULL, nan);
-  // the init slot (rank 0, index best[0]) and six extra-init slots
-  const int b0 = bst[0];
-  const float init =
-      b0 >= 0 ? opener_cand(r, clampi(b0, 0, E - 1), succ_e, pos_e, wlo, W)
-              : 0.0f;
   if (init != init) nan = true;
   const Cand ci{init, 0, E};
   if (better(ci, c)) c = ci;
+  // the six extra-init slots (0 where best[i] < 0, else -inf; rank and
+  // position rising with i): the best of them is the first i with
+  // best[i] < 0, else i = 0
+  int ix = 0;
+  float vx = NEG_INF;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const Cand cx{bst[i] >= 0 ? NEG_INF : 0.0f, (i + 1) * (2 * E) + E,
-                  E + 1 + i};
-    if (better(cx, c)) c = cx;
-  }
+  for (int i = 5; i >= 0; --i)
+    if (bs.at[i] < 0) {
+      ix = i;
+      vx = 0.0f;
+    }
+  const Cand cx{vx, (ix + 1) * (2 * E) + E, E + 1 + ix};
+  if (better(cx, c)) c = cx;
   if (nan) {
     *m_out = NAN;
     *w_out = 0;
@@ -301,35 +376,76 @@ __device__ void opener_best(const Read<S>& r, int e, int te, int pos_e,
   }
 }
 
+// One row of the re-link window (Process_Fwd_Stop_Rev_Start's bounded
+// overlap): whether closing event e re-links row wlo + k, by how much.
+template <typename S>
+struct Relink {
+  bool u;
+  S diff;
+  int sub;
+  __device__ void put(const Read<S>& r, int k) const {
+    r.upd_w[k] = u;
+    if (u) {
+      r.diff_w[k] = diff;
+      r.sub_w[k] = sub;
+    }
+  }
+};
+
+template <typename S, bool ERR>
+__device__ inline Relink<S> relink_row(const Read<S>& r, int k, int e,
+                                       int wlo, int W, int te, int pos_e,
+                                       S score_e) {
+  Relink<S> x{false, S(0), 0};
+  const int j = wlo + k;
+  if (k >= W || j >= e) return x;
+  const int pj = r.pos[j], tj = r.typ[j];
+  if (!(3 + pos_e - pj <= r.max_olap && !r.disq[j] &&
+        (tj == FWD_START || tj == REV_STOP)))
+    return x;
+  if (ERR) {
+    const int errp_e = r.errp[e], ej = r.errp[j];
+    if ((errp_e >= 0 && pj - 2 <= errp_e) || (ej >= 0 && ej <= pos_e))
+      return x;
+  }
+  const int bpw = r.bp[j];
+  const bool valid = bpw >= 0;
+  const int bpc = clampi(bpw, 0, r.E - 1);
+  const S needed = valid ? r.score[bpc] : S(0);
+  if (!(needed < score_e)) return x;
+  const int bptyp = valid ? r.typ[bpc] : 0;
+  const int bppos = r.pos[bpc];
+  const bool succ = tj == FWD_START;
+  const float oo = adj_or(r, bptyp, succ);
+  const float od = adj_dist(r, adj_ti(bptyp, succ), pj - bppos - 3);
+  const float old_adj = valid ? oo + od : 0.0f;
+  const float new_adj =
+      adj_or(r, te, succ) + adj_dist(r, adj_ti(te, succ), pj - pos_e - 3);
+  x.diff = (score_e - needed) + (S)(new_adj - old_adj);
+  x.u = x.diff > S(0);
+  x.sub = r.sub[j];
+  return x;
+}
+
+// max(min(max(ne, 0), E)) over the batch, the twin's loop bound; all lanes.
+__device__ int batch_hi(const int* ne, int B, int E, int lane) {
+  int hi = 0;
+  for (int i = lane; i < B; i += 32) hi = max(hi, min(max(ne[i], 0), E));
+  return __reduce_max_sync(FULL, hi);
+}
+
 template <typename S, bool ERR>
 __global__ void __launch_bounds__(WARPS * 32) event_dp_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int E = a.E, D = a.D, max_olap = a.max_olap;
-  const size_t wb = warp_bytes<S>(E);
-
-  // The twin's batch-wide loop bound, max(min(ne, E)): the traceback runs
-  // to it (past a read's own chain only where the predecessor graph has a
-  // cycle, which build_bank's min_gene_len > max_olap + 3 rules out).
-  int hi_all = 0;
-  for (int i = threadIdx.x; i < a.B; i += blockDim.x)
-    hi_all = max(hi_all, min(max(a.ne[i], 0), E));
-  hi_all = __reduce_max_sync(FULL, hi_all);
-  int* block_hi = reinterpret_cast<int*>(smem + WARPS * wb);
-  if (lane == 0) block_hi[warp] = hi_all;
-  __syncthreads();
-  int batch_hi = 0;
-  for (int w = 0; w < WARPS; ++w) batch_hi = max(batch_hi, block_hi[w]);
-  const bool batch_live = batch_hi > 0;
-
   const int b = blockIdx.x * WARPS + warp;
   if (b >= a.B) return;
+  const int E = a.E, D = a.D, max_olap = a.max_olap;
 
   Read<S> r;
-  unsigned char* p = smem + (size_t)warp * wb;
+  unsigned char* p = smem + (size_t)warp * warp_bytes<S>(E);
   r.score = reinterpret_cast<S*>(p);
-  r.diff_w = r.score + E;
-  p += align16(sizeof(S) * (size_t)(E + WINDOW_ROWS));
+  p += align16(sizeof(S) * (size_t)E);
   int* ip = reinterpret_cast<int*>(p);
   r.bp = ip;
   r.pos = ip + E;
@@ -337,63 +453,93 @@ __global__ void __launch_bounds__(WARPS * 32) event_dp_kernel(Args a) {
   r.sub = ip + 3 * E;
   r.eid = ip + 4 * E;
   r.errp = ip + 5 * E;
-  r.sub_w = ip + 6 * E;
-  r.best = r.sub_w + WINDOW_ROWS;
-  p += align16(4 * (size_t)(6 * E + WINDOW_ROWS + 8));
+  r.etyp = ip + 6 * E;
+  r.best = ip + 7 * E;
+  p += align16(4 * (size_t)(7 * E + 8));
   r.disq = p;
-  r.upd_w = p + E;
+  r.trunc = p + E;
+  p += align16(2 * (size_t)E);
+  unsigned char* buf = p;  // the 48-row buffer
+  r.diff_w = reinterpret_cast<S*>(buf);
+  r.sub_w = reinterpret_cast<int*>(buf + sizeof(S) * WINDOW_ROWS);
+  r.upd_w = buf + (sizeof(S) + 6 * 4) * WINDOW_ROWS;
   r.D = D;
   r.E = E;
   r.max_olap = max_olap;
 
+  // the group's adjacency tables (the values of the twin's per-read
+  // gather, _prefetch_adj)
+  const int g = clampi(a.groups[b], 0, a.G - 1);
+  const float* tab_g = a.tab + (size_t)g * 3 * D;
+  r.tab = tab_g;
+  r.ao0 = __ldg(a.ao + 4 * g);
+  r.ao1 = __ldg(a.ao + 4 * g + 1);
+  r.ao2 = __ldg(a.ao + 4 * g + 2);
+  r.ao3 = __ldg(a.ao + 4 * g + 3);
+  r.dl0 = __ldg(a.dl + 3 * g);
+  r.dl1 = __ldg(a.dl + 3 * g + 1);
+  r.dl2 = __ldg(a.dl + 3 * g + 2);
+  r.satv0 = __ldg(tab_g + clampi(r.dl0 - 1, 0, D - 1));
+  r.satv1 = __ldg(tab_g + D + clampi(r.dl1 - 1, 0, D - 1));
+  r.satv2 = __ldg(tab_g + 2 * D + clampi(r.dl2 - 1, 0, D - 1));
+
+  const int hi = min(max(a.ne[b], 0), E);
+  // whether the twin's batch-wide loop runs at all (for the -0 rule)
+  const bool batch_live = hi > 0 || batch_hi(a.ne, a.B, E, lane) > 0;
   const size_t row = (size_t)b * E;
   const S* score_in = static_cast<const S*>(a.score_in) + row;
+#pragma unroll 5
   for (int j = lane; j < E; j += 32) {
-    S s = score_in[j];
+    S s = __ldg(score_in + j);
     if (batch_live && s == S(0)) s = S(0);  // -0 -> +0, as x + 0 does
     r.score[j] = s;
     r.bp[j] = -2;
     r.disq[j] = 0;
-    r.pos[j] = a.pos[row + j];
-    r.typ[j] = a.typ[row + j];
-    r.sub[j] = a.sub[row + j];
-    r.eid[j] = a.eid[row + j];
-    if (ERR) r.errp[j] = a.err_pos[row + j];
+    r.pos[j] = __ldg(a.pos + row + j);
+    r.typ[j] = __ldg(a.typ + row + j);
+    r.sub[j] = __ldg(a.sub + row + j);
+    r.eid[j] = __ldg(a.eid + row + j);
+    r.trunc[j] = __ldg(a.trunc + row + j) != 0;
+    if (ERR) {
+      r.errp[j] = __ldg(a.err_pos + row + j);
+      r.etyp[j] = __ldg(a.err_typ + row + j);
+    }
   }
   if (lane < 6) r.best[lane] = -1;
-  // the group's adjacency tables, read by group from the bank (the values
-  // of the twin's per-read gather, _prefetch_adj)
-  const int g = clampi(a.groups[b], 0, a.G - 1);
-  r.ao0 = a.ao[4 * g];
-  r.ao1 = a.ao[4 * g + 1];
-  r.ao2 = a.ao[4 * g + 2];
-  r.ao3 = a.ao[4 * g + 3];
-  r.dl0 = a.dl[3 * g];
-  r.dl1 = a.dl[3 * g + 1];
-  r.dl2 = a.dl[3 * g + 2];
-  r.tab = a.tab + (size_t)g * 3 * D;
-  r.satv0 = r.tab[clampi(r.dl0 - 1, 0, D - 1)];
-  r.satv1 = r.tab[D + clampi(r.dl1 - 1, 0, D - 1)];
-  r.satv2 = r.tab[2 * D + clampi(r.dl2 - 1, 0, D - 1)];
   __syncwarp();
 
-  const int hi = min(max(a.ne[b], 0), E);
   const int W = min(WINDOW_ROWS, E);
   bool wovf = false;
+  int pmax = 0, pdone = 0;  // max of pos over rows [0, pdone)
+  Best bs;
+  int nrs[6];  // the last non-REV_START row of sub i below e
+#pragma unroll
+  for (int i = 0; i < 6; ++i) bs.at[i] = bs.typ[i] = bs.m[i] = nrs[i] = -1;
   for (int e = 0; e < hi; ++e) {
-    const int te = r.typ[e];
+    const int te = r.typ[e], sub_e = r.sub[e];
+    int m_e = e;  // m_i were best[sub_e] = e
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      if (sub_e == i) {
+        if (te == REV_START)
+          m_e = nrs[i];
+        else
+          nrs[i] = e;
+      }
     if (te == 0) continue;  // padding: the twin's step changes nothing
-    const int pos_e = r.pos[e], sub_e = r.sub[e], eid_e = r.eid[e];
+    const int pos_e = r.pos[e], eid_e = r.eid[e];
     const S score_e0 = r.score[e];
     const bool is_open = te == FWD_START || te == REV_STOP;
     const bool is_fs = te == FWD_STOP, is_rs = te == REV_START;
     const int wlo = max(e - W, 0);
 
-    // row-window sufficiency
-    bool out = false;
-    for (int j = lane; j < wlo; j += 32)
-      out |= pos_e - r.pos[j] <= max_olap + 6;
-    wovf |= __any_sync(FULL, out);
+    // row-window sufficiency: a processed row below the window within
+    // max_olap + 6 bases of e
+    if (wlo > 0) {
+      for (; pdone < wlo; ++pdone)
+        pmax = pdone == 0 ? r.pos[0] : max(pmax, r.pos[pdone]);
+      wovf |= pos_e - pmax <= max_olap + 6;
+    }
 
     S new_score = score_e0;
     int new_bp = r.bp[e];
@@ -401,31 +547,30 @@ __global__ void __launch_bounds__(WARPS * 32) event_dp_kernel(Args a) {
     if (is_open) {
       float m;
       int w;
-      opener_best(r, e, te, pos_e, wlo, W, lane, &m, &w);
+      opener_best(r, bs, e, te, pos_e, wlo, W, lane, &m, &w);
       new_score = score_e0 + (S)m;
       new_bp = w;
     } else if (is_fs || is_rs) {
-      // same-id maxima over the processed rows
+      // same-id maxima over the processed rows, one pass: each lane's
+      // maximum and the largest index at it, NaN apart
       S mloc = -INFINITY;
+      int wloc = -1, prs = -1;
       bool nan = false;
-      int prs = -1;
       for (int j = lane; j < e; j += 32) {
         if (r.sub[j] != sub_e || r.eid[j] != eid_e) continue;
         const S s = r.score[j];
-        if (s != s)
+        if (s != s) {
           nan = true;
-        else if (s > mloc)
+        } else if (s >= mloc) {
+          wloc = j;
           mloc = s;
+        }
         if (r.typ[j] != REV_START) prs = j;
       }
-      S m_fs = warp_max(mloc);
+      bool mine;
+      S m_fs = warp_max(mloc, &mine);
       nan = __any_sync(FULL, nan);
-      int wloc = -1;
-      if (!nan)
-        for (int j = lane; j < e; j += 32)
-          if (r.sub[j] == sub_e && r.eid[j] == eid_e && r.score[j] == m_fs)
-            wloc = j;
-      const int w_fs = __reduce_max_sync(FULL, wloc);
+      const int w_fs = nan ? -1 : __reduce_max_sync(FULL, mine ? wloc : -1);
       if (nan) m_fs = (S)NAN;
       p_rs = __reduce_max_sync(FULL, prs);
       if (is_fs) {
@@ -436,82 +581,78 @@ __global__ void __launch_bounds__(WARPS * 32) event_dp_kernel(Args a) {
         new_bp = p_rs;
       }
     }
-    __syncwarp();
-    if (lane == 0) {
-      r.score[e] = new_score;
-      r.bp[e] = new_bp;
+    if (!(is_fs || is_rs)) {
+      if (lane == 0) {
+        r.score[e] = new_score;
+        r.bp[e] = new_bp;
+      }
+      __syncwarp();
+      continue;
     }
-    __syncwarp();
-    if (!(is_fs || is_rs)) continue;
 
     // ---- closure (Process_Fwd_Stop_Rev_Start tail) ----
     const S score_e = new_score;
-    const int sub_c = clampi(sub_e, 0, 5);
-    const int be = r.best[sub_c];
+    int be = bs.at[0];
+#pragma unroll
+    for (int i = 1; i < 6; ++i)
+      if (sub_e == i) be = bs.at[i];
     const S be_s = be >= 0 ? r.score[clampi(be, 0, E - 1)] : S(0);
-    __syncwarp();  // every lane has read best before lane 0 writes it
-    if (!(be_s < score_e)) continue;  // without `do` the rest changes nothing
+    const bool upd = be_s < score_e;  // without it the rest changes nothing
     const int p_disq = is_rs ? p_rs : -1;
     const int cutoff = 3 + pos_e - max_olap;
+    if (upd) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+        if (sub_e == i) {
+          bs.at[i] = e;
+          bs.typ[i] = te;
+          bs.m[i] = m_e;
+        }
+    }
     if (lane == 0) {
-      walk_set(r, p_disq >= 0 ? r.bp[clampi(p_disq, 0, E - 1)] : -1, cutoff,
-               1);
-      if (sub_e >= 0 && sub_e < 6) r.best[sub_e] = e;
-    }
-    __syncwarp();
-
-    // ---- bounded-overlap re-link: snapshot the window ----
-    const int errp_e = ERR ? r.errp[e] : -1;
-    for (int k = lane; k < W; k += 32) {
-      const int j = wlo + k;
-      const int bpw = r.bp[j];
-      const bool valid = bpw >= 0;
-      const int bpc = clampi(bpw, 0, E - 1);
-      const S needed = valid ? r.score[bpc] : S(0);
-      const int bptyp = valid ? r.typ[bpc] : 0;
-      const int bppos = r.pos[bpc];
-      const int pj = r.pos[j], tj = r.typ[j];
-      bool cand = j < e && 3 + pos_e - pj <= max_olap && !r.disq[j] &&
-                  (tj == FWD_START || tj == REV_STOP) && needed < score_e;
-      if (ERR) {
-        const int ej = r.errp[j];
-        const bool ov = (errp_e >= 0 && pj - 2 <= errp_e) ||
-                        (ej >= 0 && ej <= pos_e);
-        cand = cand && !ov;
+      r.score[e] = score_e;
+      r.bp[e] = new_bp;
+      if (upd) {
+        walk_set(r, p_disq >= 0 ? r.bp[clampi(p_disq, 0, E - 1)] : -1,
+                 cutoff, 1);
+        if (sub_e >= 0 && sub_e < 6) r.best[sub_e] = e;
       }
-      const bool succ = tj == FWD_START;
-      const float oo = adj_or(r, bptyp, succ);
-      const float od = adj_dist(r, adj_ti(bptyp, succ), pj - bppos - 3);
-      const float old_adj = valid ? oo + od : 0.0f;
-      const float new_adj =
-          adj_or(r, te, succ) + adj_dist(r, adj_ti(te, succ), pj - pos_e - 3);
-      const S diff = (score_e - needed) + (S)(new_adj - old_adj);
-      r.upd_w[k] = cand && diff > S(0);
-      r.diff_w[k] = diff;
-      r.sub_w[k] = r.sub[j];
     }
     __syncwarp();
-    // successor propagation over the full row
-    for (int j = lane; j < e; j += 32) {
+    if (!upd) continue;
+
+    // ---- bounded-overlap re-link: snapshot the window, rows lane and
+    // lane + 32 (W <= 48), both read before either is written ----
+    const Relink<S> x0 = relink_row<S, ERR>(r, lane, e, wlo, W, te, pos_e,
+                                            score_e);
+    const Relink<S> x1 = relink_row<S, ERR>(r, lane + 32, e, wlo, W, te,
+                                            pos_e, score_e);
+    if (lane < W) x0.put(r, lane);
+    if (lane + 32 < W) x1.put(r, lane + 32);
+    __syncwarp();
+    // successors of updated window rows (rows above their predecessor, so
+    // in the window too), then the window rows themselves: each lane its
+    // own rows
+    for (int j = wlo + lane; j < e; j += 32) {
       const int bj = r.bp[j];
       const int rel = bj - wlo;
+      S s = r.score[j];
       if (bj >= 0 && rel >= 0 && rel < W && r.upd_w[rel] &&
           r.sub[j] == r.sub_w[rel] && j > bj)
-        r.score[j] += r.diff_w[rel];
-    }
-    __syncwarp();
-    for (int k = lane; k < W; k += 32) {
-      if (r.upd_w[k]) {
-        r.score[wlo + k] += r.diff_w[k];
-        r.bp[wlo + k] = e;
+        s += r.diff_w[rel];
+      const int k = j - wlo;
+      if (k >= 0 && r.upd_w[k]) {
+        s += r.diff_w[k];
+        r.bp[j] = e;
       }
+      r.score[j] = s;
     }
     __syncwarp();
     if (lane == 0)
       walk_set(r, p_disq >= 0 ? r.bp[clampi(p_disq, 0, E - 1)] : -1, cutoff,
                0);
-    __syncwarp();
   }
+  __syncwarp();
 
   // ---- outputs of the DP ----
   S* score_out = static_cast<S*>(a.score) + row;
@@ -522,80 +663,97 @@ __global__ void __launch_bounds__(WARPS * 32) event_dp_kernel(Args a) {
   if (lane < 6) a.best[6 * b + lane] = r.best[lane];
   if (lane == 0) a.wovf[b] = wovf;
 
-  // ---- Set_Final_Event + Trace_Back ----
-  const size_t grow = (size_t)b * MAX_GENES;
-  S* g_score = static_cast<S*>(a.g_score) + grow;
-  for (int k = lane; k < MAX_GENES; k += 32) {
-    a.g_id[grow + k] = 0;
-    a.g_stop[grow + k] = 0;
-    a.g_len[grow + k] = 0;
-    a.g_sign[grow + k] = 0;
-    a.g_trunc[grow + k] = 0;
-    g_score[k] = S(0);
-    a.g_epos[grow + k] = -1;
-    a.g_etyp[grow + k] = -1;
-  }
-  __syncwarp();
-  if (lane != 0) return;
-  int fe = r.best[0];
-  S fs = fe >= 0 ? r.score[clampi(fe, 0, E - 1)] : S(0);
+  // ---- Set_Final_Event + Trace_Back: lane 0 chases bp over the shared
+  // rows and writes the records into the 48-row buffer ----
+  S* rec_score = reinterpret_cast<S*>(buf);
+  int* rec_i = reinterpret_cast<int*>(buf + sizeof(S) * WINDOW_ROWS);
+  int *rec_id = rec_i, *rec_stop = rec_i + WINDOW_ROWS,
+      *rec_len = rec_i + 2 * WINDOW_ROWS, *rec_sign = rec_i + 3 * WINDOW_ROWS,
+      *rec_epos = rec_i + 4 * WINDOW_ROWS, *rec_etyp = rec_i + 5 * WINDOW_ROWS;
+  uint8_t* rec_trunc = buf + (sizeof(S) + 6 * 4) * WINDOW_ROWS;
+  int q = r.best[0];
+  S fs = q >= 0 ? r.score[clampi(q, 0, E - 1)] : S(0);
   for (int i = 1; i < 6; ++i) {
     const int bi = r.best[i];
     const S si = bi >= 0 ? r.score[clampi(bi, 0, E - 1)] : S(0);
     if (si >= fs) {
-      fe = bi;
+      q = bi;
       fs = si;
     }
   }
-  int q = fe, cur_stop = 0, rev_start_pos = 0, rev_epos = -1, rev_etyp = -1;
-  int cnt = 0;
+  int k = 0, cnt = 0, cur_stop = 0, rev_start_pos = 0, rev_epos = -1,
+      rev_etyp = -1;
   S prev_score = S(0);
   uint8_t rev_trunc = 0;
-  for (int k = 0; k < batch_hi && q >= 0; ++k) {
-    const int pc = clampi(q, 0, E - 1);
-    const int tp = r.typ[pc], bpp = r.bp[pc], pos_p = r.pos[pc];
-    const S score_p = r.score[pc];
-    const uint8_t trunc_p = a.trunc[row + pc] != 0;
-    const bool emit_f = tp == FWD_START, emit_r = tp == REV_STOP;
-    const bool is_rs = tp == REV_START;
-    int epos_p = -1, etyp_p = -1;
-    if (ERR) {
-      epos_p = a.err_pos[row + pc];
-      etyp_p = a.err_typ[row + pc];
-    }
-    if (emit_f || emit_r) {
-      const S score_bpp = bpp >= 0 ? r.score[clampi(bpp, 0, E - 1)] : S(0);
-      const size_t g = grow + clampi(cnt, 0, MAX_GENES - 1);
-      a.g_id[g] = r.eid[pc];
-      a.g_stop[g] = emit_f ? cur_stop : pos_p - 2;
-      a.g_len[g] = emit_f ? 2 + cur_stop - pos_p : rev_start_pos - pos_p;
-      a.g_sign[g] = emit_f ? 1 : -1;
-      a.g_trunc[g] = emit_f ? trunc_p : rev_trunc;
-      g_score[g - grow] = emit_f ? score_p - score_bpp : prev_score - score_p;
-      if (ERR) {
-        a.g_epos[g] = emit_f ? epos_p : rev_epos;
-        a.g_etyp[g] = emit_f ? etyp_p : rev_etyp;
+  int lim = hi;  // the read's own bound; the batch's where a chain outlives it
+  for (bool batch = false;; batch = true) {
+    if (lane == 0) {
+      for (; k < lim && q >= 0; ++k) {
+        const int pc = clampi(q, 0, E - 1);
+        const int tp = r.typ[pc], bpp = r.bp[pc], pos_p = r.pos[pc];
+        const S score_p = r.score[pc];
+        const uint8_t trunc_p = r.trunc[pc];
+        const bool emit_f = tp == FWD_START, emit_r = tp == REV_STOP;
+        const bool is_rs = tp == REV_START;
+        int epos_p = -1, etyp_p = -1;
+        if (ERR) {
+          epos_p = r.errp[pc];
+          etyp_p = r.etyp[pc];
+        }
+        if (emit_f || emit_r) {
+          const S score_bpp =
+              bpp >= 0 ? r.score[clampi(bpp, 0, E - 1)] : S(0);
+          const int s = min(cnt, MAX_GENES - 1);
+          rec_id[s] = r.eid[pc];
+          rec_stop[s] = emit_f ? cur_stop : pos_p - 2;
+          rec_len[s] = emit_f ? 2 + cur_stop - pos_p : rev_start_pos - pos_p;
+          rec_sign[s] = emit_f ? 1 : -1;
+          rec_trunc[s] = emit_f ? trunc_p : rev_trunc;
+          rec_score[s] = emit_f ? score_p - score_bpp : prev_score - score_p;
+          if (ERR) {
+            rec_epos[s] = emit_f ? epos_p : rev_epos;
+            rec_etyp[s] = emit_f ? etyp_p : rev_etyp;
+          }
+          ++cnt;
+        }
+        if (ERR && is_rs) {
+          rev_epos = epos_p;
+          rev_etyp = etyp_p;
+        }
+        if (tp == FWD_STOP || emit_r) cur_stop = pos_p - 2;
+        if (is_rs) {
+          rev_start_pos = pos_p;
+          prev_score = score_p;
+          rev_trunc = trunc_p;
+        }
+        q = bpp;
       }
-      ++cnt;
     }
-    if (ERR && is_rs) {
-      rev_epos = epos_p;
-      rev_etyp = etyp_p;
-    }
-    if (tp == FWD_STOP || emit_r) cur_stop = pos_p - 2;
-    if (is_rs) {
-      rev_start_pos = pos_p;
-      prev_score = score_p;
-      rev_trunc = trunc_p;
-    }
-    q = bpp;
+    if (batch || !__shfl_sync(FULL, q >= 0, 0)) break;
+    lim = batch_hi(a.ne, a.B, E, lane);  // a cycle: the batch's bound
   }
-  a.cnt[b] = cnt;
+  cnt = __shfl_sync(FULL, cnt, 0);
+  __syncwarp();
+  const int n_rec = min(cnt, MAX_GENES);
+  const size_t grow = (size_t)b * MAX_GENES;
+  S* g_score = static_cast<S*>(a.g_score) + grow;
+  for (int s = lane; s < MAX_GENES; s += 32) {
+    const bool has = s < n_rec;
+    a.g_id[grow + s] = has ? rec_id[s] : 0;
+    a.g_stop[grow + s] = has ? rec_stop[s] : 0;
+    a.g_len[grow + s] = has ? rec_len[s] : 0;
+    a.g_sign[grow + s] = has ? rec_sign[s] : 0;
+    a.g_trunc[grow + s] = has ? rec_trunc[s] : 0;
+    g_score[s] = has ? rec_score[s] : S(0);
+    a.g_epos[grow + s] = ERR && has ? rec_epos[s] : -1;
+    a.g_etyp[grow + s] = ERR && has ? rec_etyp[s] : -1;
+  }
+  if (lane == 0) a.cnt[b] = cnt;
 }
 
 template <typename S, bool ERR>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t bytes = WARPS * warp_bytes<S>(a.E) + 16 * WARPS;
+  const size_t bytes = WARPS * warp_bytes<S>(a.E);
   auto kernel = event_dp_kernel<S, ERR>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

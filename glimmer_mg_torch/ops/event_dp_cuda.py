@@ -11,6 +11,9 @@ fallback from one to the other.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from . import event_dp
@@ -38,6 +41,39 @@ def _check(name, t, dtypes, shape, device):
         raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(B, E, sdt):
+    """Per dtype of K3's outputs (score type, int32, bool): the buffer's
+    length and, per output, (its index, shape, strides, offset), each
+    output starting 16-byte aligned."""
+    i32, b8 = torch.int32, torch.bool
+    shapes = ((B, E), (B, E), (B, 6), (B,), *[(B, MAX_GENES)] * 6,
+              (B, MAX_GENES), (B, MAX_GENES), (B,))
+    dtypes = (sdt, i32, i32, b8, i32, i32, i32, i32, b8, sdt, i32, i32, i32)
+    layout = []
+    for dt in (sdt, i32, b8):
+        step, n, views = 16 // dt.itemsize, 0, []
+        for k, (shape, d) in enumerate(zip(shapes, dtypes)):
+            if d == dt:
+                views.append((k, shape, (shape[-1], 1)[-len(shape):], n))
+                n += -(-math.prod(shape) // step) * step
+        layout.append((dt, n, tuple(views)))
+    return tuple(layout)
+
+
+def outputs(B, E, sdt, device):
+    """K3's 13 outputs, uninitialised, as the twin gives them (score, bp,
+    best, wovf, g_id, g_stop, g_len, g_sign, g_trunc, g_score, g_epos,
+    g_etyp, cnt): contiguous views of one buffer a dtype, each starting
+    16-byte aligned."""
+    out = [None] * 13
+    for dt, n, views in _layout(B, E, sdt):
+        buf = torch.empty(n, dtype=dt, device=device)
+        for k, shape, strides, offset in views:
+            out[k] = buf.as_strided(shape, strides, offset)
+    return tuple(out)
 
 
 def event_dp_traceback(ev, tables, groups, consts, ne):
@@ -88,19 +124,7 @@ def event_dp_traceback(ev, tables, groups, consts, ne):
     if G < 1 or D < 1:
         raise ValueError("the adjacency tables must hold a group and a value")
 
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=device)
-
-    score, bp = empty((B, E), sdt), empty((B, E), torch.int32)
-    best, wovf = empty((B, 6), torch.int32), empty((B,), torch.bool)
-    g_id, g_stop, g_len, g_sign = (empty((B, MAX_GENES), torch.int32)
-                                   for _ in range(4))
-    g_trunc = empty((B, MAX_GENES), torch.bool)
-    g_score = empty((B, MAX_GENES), sdt)
-    g_epos, g_etyp = (empty((B, MAX_GENES), torch.int32) for _ in range(2))
-    cnt = empty((B,), torch.int32)
-    out = (score, bp, best, wovf, g_id, g_stop, g_len, g_sign, g_trunc,
-           g_score, g_epos, g_etyp, cnt)
+    out = outputs(B, E, sdt, device)
     if B == 0:
         return out
 

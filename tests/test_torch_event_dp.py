@@ -19,7 +19,9 @@ the last bit (JAX reads by one-hot sums, which give the same bits up to
 the sign of a zero, which ``==`` ignores). Each read run alone (B = 1)
 gives the rows it has in the batch, and the rows at e >= ne are typ == 0:
 K3's per-read loop bound. The wrapper takes the twin on CPU tensors
-and rejects other devices.
+and rejects other devices; its outputs (``event_dp_cuda.outputs``) are
+carved from one buffer a dtype, aligned and disjoint, in the twin's
+shapes and dtypes.
 """
 
 import jax
@@ -294,3 +296,30 @@ def test_predict_batch_device_routes_through_wrapper(chunks, monkeypatch):
                                    t(groups), g6, i6)
     assert len(calls) == 1
     assert_same([x.numpy() for x in calls[0][4:]], out[:9], OUT[4:])
+
+
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["error_free", "narrow_E40"])
+def test_wrapper_outputs_carved_from_one_buffer_a_dtype(rows_cache, case,
+                                                        f64):
+    """The wrapper's outputs on device="cpu": the twin's shapes and dtypes,
+    contiguous, each 16-byte aligned, no two overlapping, one storage a
+    dtype."""
+    rows = rows_cache(case, f64)
+    want = twin(rows)
+    B, E = rows[0]["pos"].shape
+    got = event_dp_cuda.outputs(B, E, want[0].dtype, torch.device("cpu"))
+    assert len(got) == len(want) == len(OUT)
+    spans, storages = [], {}
+    for name, a, b in zip(OUT, want, got):
+        assert (b.shape, b.dtype, b.device) == (a.shape, a.dtype, a.device), \
+            name
+        assert b.is_contiguous() and b.data_ptr() % 16 == 0, name
+        spans.append((b.data_ptr(), b.data_ptr() + b.nbytes, name))
+        storages.setdefault(b.dtype, set()).add(
+            b.untyped_storage().data_ptr())
+    spans.sort()
+    for (_s0, e0, n0), (s1, _e1, n1) in zip(spans, spans[1:]):
+        assert e0 <= s1, (n0, n1)
+    assert all(len(v) == 1 for v in storages.values()), storages
+    assert len(storages) == 3

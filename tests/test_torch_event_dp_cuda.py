@@ -8,7 +8,11 @@ wovf, the eight gene arrays, cnt) over the frontend rows of
 ``tests/test_torch_event_dp.py`` (error-free, substitution mode with and
 without a quality file, f64 and f32, ties, event-dense reads with wovf
 and reads at MAX_EVENTS, E = 40), batches of 1, 37 and 2,048 reads made
-from them, and random event rows (cyclic predecessor graphs included).
+from them, and random event rows (cyclic predecessor graphs included):
+E = 161 and 1,024 (MAX_E), tables too large for shared memory (the
+kernel reads them from the bank), one block of four groups, NaN and -0
+scores, and a cyclic read in the last block of a 2,048-read batch whose
+longest read sits in the first.
 The call makes no host sync (``torch.cuda.set_sync_debug_mode("error")``),
 and a bad dtype or device raises before a launch. ``predict_batch_device``
 on CUDA tensors launches K3 and gives the CPU run's records.
@@ -19,7 +23,7 @@ import pytest
 import torch
 
 from glimmer_mg_torch.ops import device_predict as tdp
-from glimmer_mg_torch.ops import event_dp_cuda, icm_score
+from glimmer_mg_torch.ops import event_dp, event_dp_cuda, icm_score
 
 from tests.test_torch_event_dp import (  # noqa: F401  (fixtures)
     CASES, OUT, case_rows, chunks, one_torch_thread, twin,
@@ -106,19 +110,23 @@ def test_kernel_bitwise_batches(card_rows, cuda, case, b):
     assert_bitwise(twin(rows), kernel(on(rows, cuda)))
 
 
-def random_rows(seed, B, E, f64, err, dense=False, mixed=False):
+def random_rows(seed, B, E, f64, err, dense=False, mixed=False, D=104,
+                groups=None, nan=0.0):
     """Random event rows (cyclic predecessor graphs included): sorted
     positions, random types, subs, ids, scores and 7 groups' adjacency
-    tables on a grid of 0.5 (ties), -0 and -inf scores; every read at
-    ne = E, or with ``mixed`` at a random ne with typ == 0 rows after it
-    (where a cycle makes the traceback run to the batch's bound)."""
+    tables of length D on a grid of 0.5 (ties), -0 and -inf scores (and
+    NaN at the rate ``nan``); every read at ne = E, or with ``mixed`` at a
+    random ne with typ == 0 rows after it (where a cycle makes the
+    traceback run to the batch's bound); random groups, or ``groups``."""
     rng = np.random.default_rng(seed)
-    D, G = 104, 7
+    G = 7
     pos = np.cumsum(rng.integers(0, 3 if dense else 12, (B, E)), axis=1)
     score = np.round(rng.normal(0, 4, (B, E)) * 2) / 2
     score[rng.random((B, E)) < 0.2] = 0.0
     score[rng.random((B, E)) < 0.03] = -0.0
     score[rng.random((B, E)) < 0.02] = -np.inf
+    if nan:
+        score[rng.random((B, E)) < nan] = np.nan
     t = torch.from_numpy
     ev = dict(pos=t(pos.astype(np.int32)),
               typ=t(rng.integers(1, 5, (B, E)).astype(np.int32)),
@@ -140,8 +148,8 @@ def random_rows(seed, B, E, f64, err, dense=False, mixed=False):
     if mixed:
         ne = rng.integers(0, E + 1, B).astype(np.int32)
         ev["typ"][torch.arange(E)[None, :] >= t(ne)[:, None]] = 0
-    return (ev, tables, t(rng.integers(0, G, B).astype(np.int32)),
-            {"max_olap": 50}, t(ne))
+    grp = rng.integers(0, G, B) if groups is None else np.asarray(groups)
+    return (ev, tables, t(grp.astype(np.int32)), {"max_olap": 50}, t(ne))
 
 
 @pytest.mark.parametrize("err", [False, True], ids=["no_err", "err"])
@@ -156,6 +164,99 @@ def test_kernel_bitwise_random_rows(cuda, E, dense, mixed, f64, err):
     assert_bitwise(want, kernel(on(rows, cuda)))
     if dense and E == 160:
         assert want[3].any()  # wovf raised
+
+
+@pytest.mark.parametrize("err", [False, True], ids=["no_err", "err"])
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+@pytest.mark.parametrize("E,B", [(161, 64), (1024, 4)])
+def test_kernel_bitwise_wide_rows(cuda, E, B, f64, err):
+    """Rows past the smoke's E = 160: 161, and MAX_E = 1,024 (the most a
+    block's shared memory holds at four reads a block)."""
+    rows = random_rows(E, B, E, f64, err, mixed=E < 1024)
+    assert_bitwise(twin(rows), kernel(on(rows, cuda)))
+
+
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+def test_kernel_tables_in_device_memory(cuda, f64):
+    """D = 6,000: 72 KB of adjacency tables a read, far more than a
+    read's rows take in shared memory; the kernel reads them from the bank
+    through the read-only cache, at every distance the rows reach."""
+    rows = random_rows(23, 96, 160, f64, True, D=6000)
+    assert_bitwise(twin(rows), kernel(on(rows, cuda)))
+
+
+def test_kernel_one_block_four_groups(cuda):
+    """Two blocks of four reads, each read of another group."""
+    rows = random_rows(29, 8, 160, True, True, groups=[0, 1, 2, 3, 6, 5, 4, 3])
+    assert_bitwise(twin(rows), kernel(on(rows, cuda)))
+
+
+def assert_same_nan(want, got):
+    """Integer outputs equal; float outputs bitwise equal where the twin's
+    is a number and NaN where it is NaN (the payload of a NaN is the
+    device's arithmetic's, not the algorithm's)."""
+    for name, a, b in zip(OUT, want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        a, b = a.cpu(), b.cpu()
+        if a.dtype.is_floating_point:
+            nan = torch.isnan(a)
+            assert torch.equal(nan, torch.isnan(b)), name
+            iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+            a, b = a[~nan].view(iv), b[~nan].view(iv)
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+def test_kernel_nan_and_negative_zero_scores(cuda, f64):
+    """NaN (3%) and -0 (3%) scores in candidate rows: NaN candidates make
+    the opener's maximum NaN and its winner 0, a NaN among the same-id
+    scores makes m_fs NaN and w_fs -1; -0 becomes +0."""
+    rows = random_rows(31, 96, 160, f64, False, nan=0.03)
+    score = rows[0]["score"]
+    assert torch.isnan(score).any()
+    assert ((score == 0) & torch.signbit(score)).any()
+    want = twin(rows)
+    assert torch.isnan(want[0]).any()
+    assert_same_nan(want, kernel(on(rows, cuda)))
+
+
+def test_kernel_cyclic_read_beside_the_longest(card_rows, cuda):
+    """A cyclic predecessor graph (subs_dense_wovf's max_olap 300) in the
+    last block of a 2,048-read batch whose longest read sits in the first
+    block: the read's traceback runs on past its own ne, to the batch's
+    bound, which the kernel reads from ne. The twin runs on the card."""
+    rows = card_rows("subs_dense_wovf", True)
+    ne = rows[4]
+    top = int(torch.argmax(ne))
+    card = on(rows, cuda)
+    ev, tables, groups, consts, ne_c = card
+    # reads whose chain outlives their own bound: their gene count at
+    # their own bound (a batch of the reads with their ne) differs from
+    # the one beside the longest read (a batch of every read). A read's
+    # DP rows do not depend on its batch, so the twin's DP runs once.
+    dp = event_dp.event_dp_batched(
+        ev, event_dp._prefetch_adj(tables, groups), consts, ne_c)
+
+    def cnt(idx):
+        sub = tiled(card, idx)
+        idx = idx.to(cuda)
+        return event_dp.traceback_batched(
+            sub[0], dp[0][idx], dp[1][idx], dp[2][idx], sub[4])[-1].cpu()
+    beside = cnt(torch.arange(ne.shape[0]))
+    own = torch.empty_like(beside)
+    for n in torch.unique(ne).tolist():
+        idx = torch.nonzero(ne == n)[:, 0]
+        own[idx] = cnt(idx)
+    cyc = torch.nonzero((own != beside) & (ne < ne[top]))[:, 0].tolist()
+    assert cyc
+    idx = np.random.default_rng(2048).integers(0, ne.shape[0], 2048)
+    idx[0] = top
+    idx[-4:] = (cyc * 4)[:4]
+    batch = on(tiled(rows, idx), cuda)
+    want = twin(batch)
+    alone = twin(tiled(card, idx[-1:]))
+    assert int(want[12][-1]) > int(alone[12][0])
+    assert_bitwise(want, kernel(batch))
 
 
 def test_kernel_makes_no_host_sync(card_rows, cuda):
