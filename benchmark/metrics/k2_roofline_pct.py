@@ -1,0 +1,10 @@
+"""K2 (csrc/bank_walk.cu, three kernels a launch): its launches' bytes over
+3.35 TB/s, as a share of its device time in the window."""
+
+from benchmark.metrics._share import roofline_pct
+
+UNIT = "%"
+
+
+def read(t):
+    return roofline_pct(t, "k2")

@@ -1,0 +1,10 @@
+"""K3 (csrc/event_dp.cu): its launches' bytes over 3.35 TB/s, as a share of its
+device time in the window."""
+
+from benchmark.metrics._share import roofline_pct
+
+UNIT = "%"
+
+
+def read(t):
+    return roofline_pct(t, "k3")
