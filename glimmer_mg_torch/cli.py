@@ -675,7 +675,8 @@ def cmd_glimmer_mg_pipeline(argv):
     p.add_argument("--time", action="store_true",
                    help="write time_<out>_<stage>.txt files (reference --time)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace to DIR")
+                   help="write a torch.profiler trace, with the program's "
+                   "spans from every thread, to DIR")
     p.add_argument("--mesh", metavar="DATA,MODEL", default=None,
                    help="shard classification + EM over a (data, model) mesh")
     p.add_argument("-v", "--verbose", action="count", default=0,

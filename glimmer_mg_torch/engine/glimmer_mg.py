@@ -37,6 +37,15 @@ Unclassified reads (classes mode) yield [] and are not counted. The native
 engine has no fallback: when it is disabled or cannot be built, a call
 that needs it raises.
 
+With the recorder of ``utils.observe`` on, the layers record spans (on
+the thread that runs them): ``predict.models`` (``classes_models``),
+``predict.chunk_batch``, ``predict.bank_build``, ``predict.bank_upload``,
+``predict.k1``, ``predict.kf``, ``predict.k3``, ``predict.fetch`` (the
+blocking download of K3's outputs), ``predict.finish`` (``finish_genes``),
+``predict.host_engine`` and ``predict.wait`` (the main thread blocked on
+the worker's chunk); and counters ``models_cache_hit`` / ``_miss``,
+``bank_cache_hit`` / ``_miss`` and ``frame_bank_cache_hit`` / ``_miss``.
+
 One chunk stays in flight, as in the JAX package: while the main thread
 builds chunk k+1's Models (and, on the native route, launches its
 six-frame kernel), chunk k's device DP, or its score copy and native
@@ -63,6 +72,7 @@ from .. import native as native_mod
 from ..models import dna, icm as icm_mod
 from ..ops import device_predict as dpk
 from ..ops import icm_cuda, icm_score
+from ..utils import observe
 from . import orfs as orf_mod
 from .glimmer3 import Models
 from .mg_host import (
@@ -113,13 +123,15 @@ def _model_tag(models):
     return getattr(models, "_cache_tag", None) or _stable_tag(models, "m")
 
 
-def _cached(bank_cache, key, build):
+def _cached(bank_cache, key, build, counter):
     """``bank_cache[key]``, made by ``build()`` on a miss (None is not
-    cached)."""
+    cached); counts ``<counter>_hit`` or ``<counter>_miss``."""
     hit = bank_cache.get(key)
     if hit is not None:
+        observe.count(counter + "_hit")
         bank_cache.move_to_end(key)
         return hit
+    observe.count(counter + "_miss")
     hit = build()
     if hit is not None:
         _lru_put(bank_cache, key, hit, _BANK_CAP)
@@ -139,17 +151,21 @@ def _kernel_probs(mip, probs):
 def _bank_for(rows, models_list, l_pad, device, bank_cache):
     """(bank, its device tensors) for one chunk, from the call's LRU
     ``bank_cache`` keyed by (model tags ``rows``, length bucket). The
-    six-frame tables' ranges are checked once, before the upload."""
+    six-frame tables' ranges are checked once, before the upload. Spans
+    ``predict.bank_build`` and ``predict.bank_upload`` (with the fold);
+    counters ``bank_cache_hit``, ``bank_cache_miss``."""
     def build():
-        bank = dpk.build_bank(models_list, max_read_len=l_pad)
-        icm_cuda.check_tables(bank.gene_mip, bank.indep_mip, bank.depth)
-        dev = dpk.bank_to_device(bank, device)
-        for mip, probs in (("gene_mip", "gene_probs"),
-                           ("indep_mip", "indep_probs")):
-            dev[probs] = _kernel_probs(dev[mip], dev[probs])
+        with observe.span("predict.bank_build", rows=len(rows)):
+            bank = dpk.build_bank(models_list, max_read_len=l_pad)
+            icm_cuda.check_tables(bank.gene_mip, bank.indep_mip, bank.depth)
+        with observe.span("predict.bank_upload"):
+            dev = dpk.bank_to_device(bank, device)
+            for mip, probs in (("gene_mip", "gene_probs"),
+                               ("indep_mip", "indep_probs")):
+                dev[probs] = _kernel_probs(dev[mip], dev[probs])
         return bank, dev
 
-    return _cached(bank_cache, (tuple(rows), l_pad), build)
+    return _cached(bank_cache, (tuple(rows), l_pad), build, "bank_cache")
 
 
 def _chunk_batch(jobs, row_key, device):
@@ -162,38 +178,40 @@ def _chunk_batch(jobs, row_key, device):
 
     A row is one distinct ``row_key(models)``; rows are in key order, not
     first-seen order, so that chunks holding the same rows share one
-    cached bank."""
-    key_of = {}
-    for _s, m, _q, _hq in jobs:
-        if id(m) not in key_of:
-            key_of[id(m)] = row_key(m)
-    rows = {}
-    for _s, m, _q, _hq in jobs:
-        rows.setdefault(key_of[id(m)], m)
-    keys = sorted(rows, key=repr)
-    index = {k: gi for gi, k in enumerate(keys)}
+    cached bank. Span ``predict.chunk_batch``."""
+    with observe.span("predict.chunk_batch", reads=len(jobs)):
+        key_of = {}
+        for _s, m, _q, _hq in jobs:
+            if id(m) not in key_of:
+                key_of[id(m)] = row_key(m)
+        rows = {}
+        for _s, m, _q, _hq in jobs:
+            rows.setdefault(key_of[id(m)], m)
+        keys = sorted(rows, key=repr)
+        index = {k: gi for gi, k in enumerate(keys)}
 
-    l_pad = _bucket(max(len(s) for s, *_ in jobs))
-    b_pad = _bucket(len(jobs), 64)
-    reads = np.zeros((b_pad, l_pad), dtype=np.int32)
-    lens = np.zeros(b_pad, dtype=np.int32)
-    grp = np.zeros(b_pad, dtype=np.int32)
-    for r, (seq_idx, m, _q, _hq) in enumerate(jobs):
-        reads[r, : len(seq_idx)] = seq_idx
-        lens[r] = len(seq_idx)
-        grp[r] = index[key_of[id(m)]]
-    icm_cuda.check_reads(reads, lens, grp, len(keys))
-    return (keys, [rows[k] for k in keys],
-            *(torch.from_numpy(a).to(device) for a in (reads, lens, grp)))
+        l_pad = _bucket(max(len(s) for s, *_ in jobs))
+        b_pad = _bucket(len(jobs), 64)
+        reads = np.zeros((b_pad, l_pad), dtype=np.int32)
+        lens = np.zeros(b_pad, dtype=np.int32)
+        grp = np.zeros(b_pad, dtype=np.int32)
+        for r, (seq_idx, m, _q, _hq) in enumerate(jobs):
+            reads[r, : len(seq_idx)] = seq_idx
+            lens[r] = len(seq_idx)
+            grp[r] = index[key_of[id(m)]]
+        icm_cuda.check_reads(reads, lens, grp, len(keys))
+        return (keys, [rows[k] for k in keys],
+                *(torch.from_numpy(a).to(device) for a in (reads, lens, grp)))
 
 
 def _host_predict(jobs, allow_indels=False, allow_subs=False):
-    """The exact host engine."""
+    """The exact host engine (span ``predict.host_engine``)."""
     counters["host_reads"] += len(jobs)
-    return [_predict_read_with_models(m, s, q, allow_indels=allow_indels,
-                                      allow_subs=allow_subs,
-                                      have_qual_file=hq)
-            for s, m, q, hq in jobs]
+    with observe.span("predict.host_engine", reads=len(jobs)):
+        return [_predict_read_with_models(m, s, q, allow_indels=allow_indels,
+                                          allow_subs=allow_subs,
+                                          have_qual_file=hq)
+                for s, m, q, hq in jobs]
 
 
 def _in_scope(jobs):
@@ -242,19 +260,21 @@ def _device_dp_chunk(jobs, device, bank_cache, *, f64=True, allow_subs=False):
 
     # on the card the bank's prob tables are the folded ones (_bank_for);
     # the CPU route ignores folded=
-    gene6, ind6 = icm_cuda.mg_six_frame(
-        dev_bank["gene_mip"], dev_bank["gene_probs"], dev_bank["indep_mip"],
-        dev_bank["indep_probs"], reads_t, lens_t, grp_t,
-        model_len=bank.model_len, depth=bank.depth,
-        gene_periodicity=bank.periodicity,
-        folded=(dev_bank["gene_probs"], dev_bank["indep_probs"]),
-        ranges_checked=True)
+    with observe.span("predict.k1"):
+        gene6, ind6 = icm_cuda.mg_six_frame(
+            dev_bank["gene_mip"], dev_bank["gene_probs"],
+            dev_bank["indep_mip"], dev_bank["indep_probs"], reads_t, lens_t,
+            grp_t, model_len=bank.model_len, depth=bank.depth,
+            gene_periodicity=bank.periodicity,
+            folded=(dev_bank["gene_probs"], dev_bank["indep_probs"]),
+            ranges_checked=True)
     quals_t = (_quals_tensor(jobs, b_pad, l_pad, device) if allow_subs
                else None)
     outs = dpk.predict_batch_device(bank, dev_bank, reads_t, lens_t, grp_t,
                                     gene6, ind6, f64=f64, subs=allow_subs,
                                     quals=quals_t)
-    genes, overflow = dpk.finish_genes(outs, len(jobs))
+    with observe.span("predict.finish"):
+        genes, overflow = dpk.finish_genes(outs, len(jobs))
     n_over = 0
     for r, job in enumerate(jobs):
         if overflow[r]:
@@ -298,7 +318,8 @@ def _frame_bank_for(rows, models_list, device, bank_cache):
         tabs = (gm, _kernel_probs(gm, gp), im, _kernel_probs(im, ip))
         return tabs, g0.model_len, depth, g0.periodicity
 
-    return _cached(bank_cache, ("frames",) + tuple(rows), build)
+    return _cached(bank_cache, ("frames",) + tuple(rows), build,
+                   "frame_bank_cache")
 
 
 def _frame_scores_dispatch(jobs, device, bank_cache):
@@ -317,10 +338,11 @@ def _frame_scores_dispatch(jobs, device, bank_cache):
     if fb is None:
         return None
     tabs, model_len, depth, periodicity = fb
-    gene6, ind6 = icm_cuda.mg_six_frame(
-        *tabs, reads_t, lens_t, grp_t, model_len=model_len, depth=depth,
-        gene_periodicity=periodicity, folded=(tabs[1], tabs[3]),
-        ranges_checked=True)
+    with observe.span("predict.k1"):
+        gene6, ind6 = icm_cuda.mg_six_frame(
+            *tabs, reads_t, lens_t, grp_t, model_len=model_len, depth=depth,
+            gene_periodicity=periodicity, folded=(tabs[1], tabs[3]),
+            ranges_checked=True)
 
     lens = [len(s) for s, *_rest in jobs]
     off6 = np.zeros(len(jobs), np.int64)
@@ -465,9 +487,13 @@ class _ChunkRouter:
                              if self.overlap else task)
 
     def collect(self):
-        """The oldest submitted chunk's genes (re-raises its exception)."""
+        """The oldest submitted chunk's genes (re-raises its exception);
+        span ``predict.wait``, the main thread blocked on the worker."""
         task = self.inflight.popleft()
-        return task.result() if self.overlap else self._run(task)
+        if not self.overlap:
+            return self._run(task)
+        with observe.span("predict.wait"):
+            return task.result()
 
     def _run(self, task):
         route, jobs, fut = task
@@ -698,14 +724,20 @@ def run_glimmer_mg_classes(
                          n if parsed is None or not parsed.user_length else 0)
             models = model_cache.get(cache_key)
             if models is None:
-                models = classes_models(
-                    classes, n, genome_data, parsed=parsed, user_icm=user_icm,
-                    user_gc=user_gc, user_rbs_pwm=user_rbs_pwm,
-                    user_stop_codons=user_stop_codons, fudge_f32=fudge_f32,
-                    min_gene_len=min_gene_len, max_olap_bases=max_olap_bases,
-                    circular=circular, icm_cache=icm_cache)
+                observe.count("models_cache_miss")
+                with observe.span("predict.models"):
+                    models = classes_models(
+                        classes, n, genome_data, parsed=parsed,
+                        user_icm=user_icm, user_gc=user_gc,
+                        user_rbs_pwm=user_rbs_pwm,
+                        user_stop_codons=user_stop_codons,
+                        fudge_f32=fudge_f32, min_gene_len=min_gene_len,
+                        max_olap_bases=max_olap_bases, circular=circular,
+                        icm_cache=icm_cache)
                 models._cache_tag = gd_tag + cache_key
                 model_cache[cache_key] = models
+            else:
+                observe.count("models_cache_hit")
             quals = qualities.get(prefix) if qualities is not None else None
             pending.append((header, dna.encode(seq), models, quals,
                             quals is not None))

@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import observe
 from . import icm_score
 
 BIG = 1 << 29
@@ -433,6 +434,8 @@ def predict_batch_device(bank: DeviceBank, dev_bank: dict, reads, lengths,
     g_sign, g_trunc, g_score, g_epos, g_etyp, cnt, n_flag); g_epos/g_etyp
     is a gene's substitution record (-1 for none), n_flag the event count,
     or MAX_EVENTS + 1 for reads the DP's row window could not serve.
+    Spans ``predict.kf``, ``predict.k3`` and ``predict.fetch`` (the
+    blocking download).
     """
     from . import event_dp_cuda, frontend_cuda
 
@@ -458,14 +461,17 @@ def predict_batch_device(bank: DeviceBank, dev_bank: dict, reads, lengths,
                                     value=255)
 
     max_events = MAX_EVENTS
-    ev, n_events = frontend_cuda.frontend(reads, lengths, groups, gene6,
-                                          ind6, dev_bank, Lp, consts,
-                                          max_events, quals=q)
+    with observe.span("predict.kf"):
+        ev, n_events = frontend_cuda.frontend(reads, lengths, groups, gene6,
+                                              ind6, dev_bank, Lp, consts,
+                                              max_events, quals=q)
     ne = torch.clamp(n_events, max=max_events)
-    _score, _bp, _best, wovf, *genes = event_dp_cuda.event_dp_traceback(
-        ev, dev_bank, groups, consts, ne)
+    with observe.span("predict.k3"):
+        _score, _bp, _best, wovf, *genes = event_dp_cuda.event_dp_traceback(
+            ev, dev_bank, groups, consts, ne)
     n_flag = torch.where(wovf, max_events + 1, n_events).to(torch.int32)
-    return [x.cpu().numpy() for x in (*genes, n_flag)]
+    with observe.span("predict.fetch"):
+        return [x.cpu().numpy() for x in (*genes, n_flag)]
 
 
 def finish_genes(outs, n_reads: int):

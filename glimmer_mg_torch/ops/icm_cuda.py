@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import observe
 from . import icm_score
 
 LANES = 128
@@ -331,7 +332,7 @@ def _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth,
     levels reads only the level rows and prob rows the tables hold,
     lengths lie in [0, L], bases in [0, 3], the context fits 30 bits and
     an int32 sum of int16 values cannot overflow. One host sync for the
-    value checks."""
+    value checks (span ``k2.check``, counter ``k2_host_syncs``)."""
     if level_mip.dim() != 4 or probs_pk.dim() != 4:
         raise ValueError("level_mip and probs_pk must be 4-D")
     m, p, lr, lanes = level_mip.shape
@@ -358,8 +359,11 @@ def _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth,
     if probs_pk.shape[2] < need:
         raise ValueError(f"probs_pk has {probs_pk.shape[2]} rows, too few "
                          f"for depth {depth}")
-    if bool(((lengths < 0) | (lengths > reads.shape[1])).any()
-            | ((reads < 0) | (reads > 3)).any()):
+    with observe.span("k2.check"):
+        bad = bool(((lengths < 0) | (lengths > reads.shape[1])).any()
+                   | ((reads < 0) | (reads > 3)).any())
+    observe.count("k2_host_syncs")
+    if bad:
         raise ValueError("lengths must lie in [0, L] and bases in [0, 3]")
 
 
@@ -383,17 +387,18 @@ def _bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth, int8,
 
     from .. import _build
 
-    fields = torch.empty((strands, 3, b, l // 3), dtype=torch.int32,
-                         device=device)
-    partial = torch.empty((strands, 3, b, m), dtype=torch.int32,
-                          device=device)
-    out = torch.empty((b, m), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _build.lib().gmt_bank_walk(
-        level_mip.data_ptr(), probs_pk.data_ptr(), reads.data_ptr(),
-        lengths.data_ptr(), fields.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), b, l, m, lr, probs_pk.shape[2], model_len, depth,
-        strands, int(int8), 1.0 / scale, stream)
+    with observe.span("k2.launch"):
+        fields = torch.empty((strands, 3, b, l // 3), dtype=torch.int32,
+                             device=device)
+        partial = torch.empty((strands, 3, b, m), dtype=torch.int32,
+                              device=device)
+        out = torch.empty((b, m), dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _build.lib().gmt_bank_walk(
+            level_mip.data_ptr(), probs_pk.data_ptr(), reads.data_ptr(),
+            lengths.data_ptr(), fields.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), b, l, m, lr, probs_pk.shape[2], model_len,
+            depth, strands, int(int8), 1.0 / scale, stream)
     if err != 0:
         raise RuntimeError(f"bank_walk kernel launch failed (cudaError {err})")
     global bank_walk_launches, bank_walk_int8_launches

@@ -28,6 +28,7 @@ import torch
 from ..engine.glimmer_mg import _check_device
 from ..models import icm as icm_mod
 from ..ops import icm_cuda, icm_score
+from ..utils import observe
 from . import classify as pclassify
 from . import mesh as pmesh
 
@@ -59,10 +60,12 @@ class PhymmBank:
         self.paths = list(icm_paths)
         self.device = _check_device(device)
         self.mesh = mesh
-        icms = [icm_mod.read_icm(p) for p in self.paths]
+        with observe.span("phymm.bank.read", icms=len(self.paths)):
+            icms = [icm_mod.read_icm(p) for p in self.paths]
         self.model_len = icms[0].model_len
         self.depth = max(m.model_depth for m in icms)
-        self.mip, self.probs = icm_score.stack_bank(icms)
+        with observe.span("phymm.bank.stack"):
+            self.mip, self.probs = icm_score.stack_bank(icms)
         mip, probs = self.mip, self.probs
         rows = slice(0, len(icms))
         if mesh is not None:
@@ -70,13 +73,16 @@ class PhymmBank:
             rows = pmesh.model_rows(mesh, mip.shape[0])
         # pack_tables works model by model, so packing in chunks and
         # concatenating gives the same tables
-        parts = [icm_cuda.pack_tables(mip[i:min(i + PACK_CHUNK, rows.stop)],
-                                      probs[i:min(i + PACK_CHUNK, rows.stop)],
-                                      depth=self.depth)
-                 for i in range(rows.start, rows.stop, PACK_CHUNK)]
-        self.tables = tuple(
-            torch.from_numpy(np.concatenate(t)).to(self.device)
-            for t in zip(*parts))
+        with observe.span("phymm.bank.pack"):
+            parts = [icm_cuda.pack_tables(
+                mip[i:min(i + PACK_CHUNK, rows.stop)],
+                probs[i:min(i + PACK_CHUNK, rows.stop)], depth=self.depth)
+                for i in range(rows.start, rows.stop, PACK_CHUNK)]
+            host = [np.concatenate(t) for t in zip(*parts)]
+        with observe.span("phymm.bank.upload",
+                          bytes=sum(t.nbytes for t in host)):
+            self.tables = tuple(torch.from_numpy(t).to(self.device)
+                                for t in host)
         self._exact = None
 
     @classmethod
@@ -107,17 +113,25 @@ class PhymmBank:
         rows and models are sliced off. Every rank returns all the scores.
         The mesh shards the kernel route only.
         """
-        m = len(self.paths)
         if self.mesh is not None and not use_kernel:
             raise ValueError("a mesh shards the bank-walk kernel route only")
+        with observe.span("phymm.score", reads=len(seqs)):
+            return self._score(seqs, batch, use_kernel, progress)
+
+    def _score(self, seqs, batch, use_kernel, progress):
+        """score_reads' batches: spans ``phymm.score.pad`` (the encoding
+        and the upload), ``.fetch`` (the blocking download) and
+        ``phymm.progress``. A bank-walk batch adds its three blocking
+        copies to ``k2_host_syncs``; K2's range check adds the fourth."""
+        m = len(self.paths)
         n = len(seqs)
         out = np.zeros((n, m), dtype=np.float32)
         length = max((len(s) for s in seqs), default=0)
         length = max(3, length + (-length) % 3)  # the kernel needs L % 3 == 0
         for lo in range(0, n, batch):
             chunk = seqs[lo : lo + batch]
-            reads, lengths = pclassify.pad_reads(chunk, length=length)
             if self.mesh is not None:
+                reads, lengths = pclassify.pad_reads(chunk, length=length)
                 reads, lengths, _n = pmesh.pad_batch(self.mesh, reads,
                                                      lengths)
                 scores, _ = pclassify.classify_step_kernel_sharded(
@@ -129,8 +143,10 @@ class PhymmBank:
                 if progress is not None:
                     progress.advance(len(chunk))
                 continue
-            reads = torch.from_numpy(reads).to(self.device)
-            lengths = torch.from_numpy(lengths).to(self.device)
+            with observe.span("phymm.score.pad", reads=len(chunk)):
+                reads, lengths = pclassify.pad_reads(chunk, length=length)
+                reads = torch.from_numpy(reads).to(self.device)
+                lengths = torch.from_numpy(lengths).to(self.device)
             if use_kernel:
                 scores, _ = pclassify.classify_step_kernel(
                     *self.tables, reads, lengths, self.model_len, self.depth)
@@ -138,25 +154,44 @@ class PhymmBank:
                 scores, _ = pclassify.classify_step(
                     *self.exact_tables(), reads, lengths, self.model_len,
                     self.depth)
-            out[lo : lo + len(chunk)] = scores.cpu().numpy()
+            with observe.span("phymm.score.fetch"):
+                out[lo : lo + len(chunk)] = scores.cpu().numpy()
+            if use_kernel:
+                # a copy from pageable memory waits for the stream: the two
+                # uploads and the fetch
+                observe.count("k2_host_syncs", 3)
             if progress is not None:
-                progress.advance(len(chunk))
+                with observe.span("phymm.progress"):
+                    progress.advance(len(chunk))
         return out
 
 
 def write_raw_phymm_output(path, icm_paths, read_ids, scores) -> None:
-    """scoreReadsGlim.pl raw matrix: one DATA row per ICM across reads."""
-    with open(path, "w") as fh:
-        fh.write("BEGIN_ICM_LIST\n")
-        for p in icm_paths:
-            fh.write(p + "\n")
-        fh.write("END_ICM_LIST\nBEGIN_READID_LIST\n")
-        for r in read_ids:
-            fh.write(r + "\n")
-        fh.write("END_READID_LIST\nBEGIN_DATA_MATRIX\n")
+    """scoreReadsGlim.pl raw matrix: one DATA row per ICM across reads.
+    Span ``phymm.raw_matrix``, its parts ``.text`` (the rows' ``%.4f``
+    text, summed) and ``.io`` (the writes and the close, summed); counter
+    ``raw_matrix_bytes``."""
+    with observe.span("phymm.raw_matrix", rows=len(icm_paths),
+                      reads=len(read_ids)) as sp, open(path, "w") as fh:
+        text, io = sp.part("text"), sp.part("io")
+        with io:
+            fh.write("BEGIN_ICM_LIST\n")
+            for p in icm_paths:
+                fh.write(p + "\n")
+            fh.write("END_ICM_LIST\nBEGIN_READID_LIST\n")
+            for r in read_ids:
+                fh.write(r + "\n")
+            fh.write("END_READID_LIST\nBEGIN_DATA_MATRIX\n")
         for g in range(len(icm_paths)):
-            fh.write(" ".join("%.4f" % s for s in scores[:, g]) + "\n")
-        fh.write("END_DATA_MATRIX\n")
+            with text:
+                line = " ".join("%.4f" % s for s in scores[:, g]) + "\n"
+            with io:
+                fh.write(line)
+        with io:
+            fh.write("END_DATA_MATRIX\n")
+            if observe.enabled():
+                observe.count("raw_matrix_bytes", fh.tell())
+            fh.close()
 
 
 def read_raw_phymm_output(path):
@@ -235,18 +270,26 @@ def load_taxonomy(icm_dir: str) -> dict[str, tuple[str, ...]]:
 
 def write_results_table(path, read_ids, icm_paths, scores, taxonomy=None) -> None:
     """Best-hit table (results.01.phymm_*.txt). ``taxonomy`` maps strain ->
-    (genus, family, order, class, phylum); unknown ranks are left blank."""
-    best = np.argmax(scores, axis=1)
-    with open(path, "w") as fh:
-        fh.write("QUERY_ID\tBEST_MATCH\tSCORE\tGENUS\tFAMILY\tORDER\tCLASS\tPHYLUM\n")
-        for i, rid in enumerate(read_ids):
-            genome = path_to_genome(icm_paths[best[i]])
-            strain = genome.split("|")[0]
-            ranks = (taxonomy or {}).get(strain, ("", "", "", "", ""))
-            fh.write(
-                "%s\t%s\t%.4f\t%s\n"
-                % (rid, strain, scores[i, best[i]], "\t".join(ranks))
-            )
+    (genus, family, order, class, phylum); unknown ranks are left blank.
+    Span ``phymm.results_table``, its parts ``.text`` (the lines, about a
+    megabyte a 16,384-read file, made whole: a part a row would cost more
+    than the row on a host with slow thread clocks) and ``.io``."""
+    with observe.span("phymm.results_table", reads=len(read_ids)) as sp, \
+            open(path, "w") as fh:
+        with sp.part("text"):
+            best = np.argmax(scores, axis=1)
+            lines = ["QUERY_ID\tBEST_MATCH\tSCORE\tGENUS\tFAMILY\tORDER\t"
+                     "CLASS\tPHYLUM\n"]
+            for i, rid in enumerate(read_ids):
+                genome = path_to_genome(icm_paths[best[i]])
+                strain = genome.split("|")[0]
+                ranks = (taxonomy or {}).get(strain, ("", "", "", "", ""))
+                lines.append("%s\t%s\t%.4f\t%s\n"
+                             % (rid, strain, scores[i, best[i]],
+                                "\t".join(ranks)))
+        with sp.part("io"):
+            fh.writelines(lines)
+            fh.close()
 
 
 def classify_file(sequence_file, icm_dir, out_dir=".", *, device,

@@ -153,3 +153,44 @@ def test_wrapper_rejects_out_of_range(cuda, bad):
     with pytest.raises(ValueError):
         icm_cuda.bank_score_both_strands(*args, **kw)
     assert icm_cuda.bank_walk_launches == 0
+
+
+def test_score_reads_counts_the_syncs_cuda_reports(cuda, tmp_path):
+    """``k2_host_syncs`` over ``PhymmBank.score_reads`` is the number of
+    synchronising calls that CUDA's sync debug mode reports there: each
+    batch's two uploads, K2's range check and the fetch."""
+    import warnings
+
+    from glimmer_mg_torch.models import icm as icm_mod
+    from glimmer_mg_torch.parallel import phymm
+    from glimmer_mg_torch.utils import observe
+
+    rng = np.random.default_rng(5)
+    for k in range(3):
+        seqs = [dna.encode(_gene_like(rng, 150, 0.35 + 0.1 * k))
+                for _ in range(8)]
+        (tmp_path / f"strain{k}").mkdir()
+        icm_mod.write_icm(icm_train.train_icm(seqs, model_len=12, depth=7),
+                          tmp_path / f"strain{k}" / f"NC_{k}.icm")
+    bank = phymm.PhymmBank.from_genome_data(str(tmp_path), cuda)
+    reads = [_gene_like(rng, int(rng.integers(20, 200)), 0.5)
+             for _ in range(40)]
+    bank.score_reads(reads, batch=16)  # builds the kernel
+    torch.cuda.synchronize()
+    observe.reset()
+    observe.enable()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                bank.score_reads(reads, batch=16)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counted = observe.snapshot()["counters"]["k2_host_syncs"]
+    finally:
+        observe.disable()
+        observe.reset()
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert counted == len(syncs) == 4 * 3
