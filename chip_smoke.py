@@ -24,6 +24,11 @@ Phases (any failure raises and exits non-zero):
   4b. K2 over 8-bit tables (pack_tables_int8, 16 models at a time) against
      the 8-bit twin at the same shape, one strand: bitwise equal; times and
      bound. No path of the port runs it (as in the JAX package);
+  4c. the raw-text kernel (the raw matrix's %.4f rows) at 16,384 reads x
+     539 ICMs: byte-identical to its plain version; the device time of its
+     four kernels warm and L2-cold beside its bound, the plain version's
+     host time, and the writer's text part (upload, kernels, download)
+     and whole write, host medians;
   5. the prediction path: reads of 300/500/700 bp sampled from the
      genomes, each classified to its source genome and every other read
      also to a second genome, predicted by the port's
@@ -174,6 +179,13 @@ the library) and its SASS BAR.SYNC count, null where the toolkit lacks
 cuobjdump; each K3 case, error_free and subs_quals, f64 and f32, the
 four instantiations, gives the longest read's steps, the microseconds a
 step, the tables' length D and the same resources).
+The raw-text kernel's "launches" is the sum over the paths that write a
+raw matrix (phase 6's pipeline and warm classify_file, phase 6b's two
+pipeline runs, phase 10's classify, phase 11's classify_file and
+pipeline on the 1x1 mesh and every rank's classify_file, phase 12's
+accuracy row), each counted from zero around its run and held to one
+launch a raw matrix written; "launches_by_path" gives each. Phase 4c's
+own timing runs are not counted.
 
 ``--kf-ab NAME=PATH`` runs KF alone instead (``kernel_ab``): this
 checkout's csrc/frontend.cu beside another frontend source (the parent
@@ -970,6 +982,90 @@ def bankwalk_phase(bank, genomes, seed):
              **results["int8", 1]})
 
 
+def rawtext_phase(seed, n=16384, m=539):
+    """The raw-text kernel at one classified file's shape (16,384 reads x
+    539 ICMs of log-probability-sized scores): bytes equal to its plain
+    version; the four kernels' device time warm and L2-cold, the measure
+    pass's alone, beside the bound (the matrix read once and the text
+    written once over 3.35 TB/s); the plain version's host time; and the
+    writer's whole ``.text`` part (the upload, the kernels, the sync for
+    the length and the download into pinned memory), its upload alone,
+    and the whole writer into a file, host medians. Returns the kernel's
+    record."""
+    import numpy as np
+    import torch
+
+    from glimmer_mg_torch import _build
+    from glimmer_mg_torch.ops import raw_text_cuda
+    from glimmer_mg_torch.parallel import phymm
+
+    rng = np.random.default_rng(seed + 19)
+    a = (-rng.uniform(250.0, 1600.0, size=(n, m))).astype(np.float32)
+    a[0, :4] = [-0.0, 1 / 32, np.nan, -np.inf]
+    raw_text_cuda.reset_launches()
+    dev = torch.from_numpy(a).to(DEVICE)
+    got = bytes(raw_text_cuda.rows_text(dev))
+    assert raw_text_cuda.launches == 1
+    t0 = time.perf_counter()
+    want = raw_text_cuda.plain_rows(a).encode("ascii")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError(f"raw_text differs from its plain version "
+                             f"({len(got)} / {len(want)} bytes)")
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    tiles = -(-n // lib.gmt_raw_text_tile_reads())
+    tile_len = torch.empty(m * tiles, dtype=torch.int32, device=DEVICE)
+    row_off = torch.empty(m + 1, dtype=torch.int64, device=DEVICE)
+    out = torch.empty(len(got), dtype=torch.uint8, device=DEVICE)
+
+    def measure():
+        lib.gmt_raw_text_measure(dev.data_ptr(), n, m, tile_len.data_ptr(),
+                                 row_off.data_ptr(), stream)
+
+    def both():
+        measure()
+        lib.gmt_raw_text_write(dev.data_ptr(), n, m, tile_len.data_ptr(),
+                               row_off.data_ptr(), out.data_ptr(), stream)
+
+    ms = kernel_ms(both)
+    cold_ms = kernel_ms(both, cold=True)
+    measure_ms = kernel_ms(measure)
+    torch.cuda.synchronize()
+    assert bytes(out.cpu().numpy()) == got
+    bound_ms, bound_by = bound(a.nbytes + len(got), 0)
+
+    def text_part():
+        return raw_text_cuda.rows_text(torch.from_numpy(a).to(DEVICE))
+
+    text_ms = host_ms(text_part)
+    upload_ms = host_ms(lambda: (torch.from_numpy(a).to(DEVICE),
+                                 torch.cuda.synchronize()))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [f"/db/strain{k}/nc{k}.icm" for k in range(m)]
+        ids = [f"read{i}" for i in range(n)]
+        writer_ms = host_ms(lambda: phymm.write_raw_phymm_output(
+            os.path.join(tmp, "raw.txt"), paths, ids, a), reps=3)
+    for line in ptxas_lines("raw_text", "_kernel"):
+        log(f"raw_text ptxas: {line}")
+    log(f"raw_text at {n} x {m} ({a.nbytes / 1e6:.1f} MB in, "
+        f"{len(got) / 1e6:.1f} MB of text): byte-identical to plain_rows; "
+        f"four kernels {ms:.4f} ms warm, {cold_ms:.4f} ms L2-cold (device, "
+        f"CUDA events), the measure pass {measure_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by}; plain_rows {plain_ms:.1f} ms; "
+        f"the writer's .text part {text_ms:.2f} ms (its upload "
+        f"{upload_ms:.2f} ms), the whole writer into a file "
+        f"{writer_ms:.2f} ms (host medians) [{gpu_line()}]")
+    return {"name": "raw_text", "route": "cuda",
+            "source": "glimmer_mg_torch/csrc/raw_text.cu",
+            "replaces": None, "max_abs_err": 0.0, "ms": ms,
+            "kernel_ms_cold": cold_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cases": {"measure_ms": measure_ms, "text_part_ms": text_ms,
+                      "upload_ms": upload_ms, "writer_ms": writer_ms,
+                      "text_bytes": len(got)}}
+
+
 @contextlib.contextmanager
 def wrapped_parts(stages):
     """For the block, wrap each (module or class, attribute, key, sync) in
@@ -1194,6 +1290,43 @@ def k3_check(title, ev, dev, grp, consts, ne):
 K3 = {"paths": {}, "cases": {}}
 # KF's records, the same for the frontend kernel.
 KF = {"paths": {}, "cases": {}}
+# The raw-text kernel's launches on each path that writes a raw matrix.
+RAW_TEXT = {}
+
+
+@contextlib.contextmanager
+def raw_matrices():
+    """For the block, the raw matrices written (write_raw_phymm_output's
+    calls) and the raw-text kernel's launches, both counted from zero;
+    yields {"written": n, "launches": k}, filled in when the block ends."""
+    from glimmer_mg_torch.ops import raw_text_cuda
+    from glimmer_mg_torch.parallel import phymm
+
+    rec = {"written": 0, "launches": 0}
+    real = phymm.write_raw_phymm_output
+
+    def counted(*a, **k):
+        rec["written"] += 1
+        return real(*a, **k)
+
+    raw_text_cuda.reset_launches()
+    phymm.write_raw_phymm_output = counted
+    try:
+        yield rec
+    finally:
+        phymm.write_raw_phymm_output = real
+        rec["launches"] = raw_text_cuda.launches
+
+
+def count_raw_text(path, rec):
+    """Adds a path's raw-text launches to RAW_TEXT, asserting that it
+    wrote a raw matrix and that the kernel rendered each one."""
+    log(f"{path}: {rec['written']} raw matrices written, raw-text kernel "
+        f"launches {rec['launches']}")
+    assert rec["written"] >= 1, f"{path} wrote no raw matrix"
+    assert rec["launches"] == rec["written"], \
+        f"{path}: the raw-text kernel did not render every raw matrix {rec}"
+    RAW_TEXT[path] = RAW_TEXT.get(path, 0) + rec["launches"]
 
 
 def kf_bytes(args, ev, quals=None):
@@ -1486,10 +1619,12 @@ def pipeline_phase(root, icm_dir, gd, bank, reads, cmap, check):
     event_dp_cuda.reset_launches()
     frontend_cuda.reset_launches()
     t0 = time.perf_counter()
-    final = pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=0,
-                              workdir=work, timers=timers)
+    with raw_matrices() as rt:
+        final = pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=0,
+                                  workdir=work, timers=timers)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
+    count_raw_text("pipeline", rt)
     k1, k2 = icm_cuda.launches, icm_cuda.bank_walk_launches
     K3["paths"]["pipeline"] = k3 = event_dp_cuda.launches
     KF["paths"]["pipeline"] = kf = frontend_cuda.launches
@@ -1579,13 +1714,14 @@ def classify_warm(fa, icm_dir, root, n_reads, bp):
               (icm_cuda, "bank_score_both_strands", "bank_walk", True),
               (phymm, "write_raw_phymm_output", "raw_file", False),
               (phymm, "write_results_table", "results_file", False)]
-    with wrapped_parts(stages) as parts:
+    with raw_matrices() as rt, wrapped_parts(stages) as parts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         paths, _rids, _s = phymm.classify_file(fa, icm_dir, out_dir=out,
                                                device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    count_raw_text("classify_warm", rt)
     log(f"warm classify_file: {n_reads} reads x {len(paths)} ICMs, "
         f"{n_reads / wall:.1f} reads/s, "
         f"{2 * bp * len(paths) / 1e6 / wall:.1f} model-Mbp/s (fwd + rc)")
@@ -1774,7 +1910,8 @@ def iterate_phase(root, icm_dir, gd, reads, check):
     work = os.path.join(root, "pipe_iter")
     timers = pipe.StageTimers()
     with em_probes() as rec, \
-            widest_six_frame(lambda: rec["in_repredict"]) as widest:
+            widest_six_frame(lambda: rec["in_repredict"]) as widest, \
+            raw_matrices() as rt:
         tmg.reset_counters()
         icm_cuda.reset_launches()
         t0 = time.perf_counter()
@@ -1784,6 +1921,7 @@ def iterate_phase(root, icm_dir, gd, reads, check):
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         k1, k2 = icm_cuda.launches, icm_cuda.bank_walk_launches
+    count_raw_text("iterate", rt)
     n_clusters = rec["n_clusters"]
     log(f"iterate path (cold): {len(reads)} reads in {cold:.2f} s; "
         f"init_clusters_from_results made {n_clusters} clusters (family "
@@ -1925,7 +2063,7 @@ def iterate_phase(root, icm_dir, gd, reads, check):
     timers = pipe.StageTimers()
     parts = [(tf, "train_features", "train_features", False),
              (elph, "motif_counts", "motif_finder", False)]
-    with wrapped_parts(parts) as repredict_parts:
+    with raw_matrices() as rt, wrapped_parts(parts) as repredict_parts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.run_pipeline(fa, icm_dir, device=DEVICE, iterate=1,
@@ -1934,6 +2072,7 @@ def iterate_phase(root, icm_dir, gd, reads, check):
                           timers=timers)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    count_raw_text("iterate", rt)
     stages = {st.name: st.wall_s for st in timers.stages}
     log_parts("warm pipeline (iterate=1, unprobed)", wall, dict(stages))
     retrain = repredict_parts.get("train_features", 0.0)
@@ -2250,6 +2389,17 @@ def routes_phase(gd, cases, check):
     return launches
 
 
+# python -c code: the port's CLI, then the raw-text kernel's launches in
+# its process on standard error
+CLI_COUNTING_RAW_TEXT = (
+    "import sys\n"
+    "from glimmer_mg_torch import cli\n"
+    "from glimmer_mg_torch.ops import raw_text_cuda\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print('raw_text_launches', raw_text_cuda.launches, file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+
+
 def cli_phase(root, icm_dir, reads, cmap, out, fa):
     """Phase 10: the port's command line, ``python -m glimmer_mg_torch.cli``
     in subprocesses on the card: ``glimmer-mg -c`` on phase 5's reads and
@@ -2270,16 +2420,21 @@ def cli_phase(root, icm_dir, reads, cmap, out, fa):
     os.makedirs(os.path.join(d, "cls"))
     work = os.path.join(root, "pipe")
 
-    def run(*argv):
+    def run(*argv, counted=False):
+        # counted: the CLI's main, then the raw-text kernel's launches in
+        # that process as the last line of its standard error
+        cli = (["-c", CLI_COUNTING_RAW_TEXT] if counted
+               else ["-m", "glimmer_mg_torch.cli"])
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "glimmer_mg_torch.cli", *argv,
-             "--device", DEVICE], cwd=here,
+            [sys.executable, *cli, *argv, "--device", DEVICE], cwd=here,
             capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
         assert proc.returncode == 0, (argv[0], proc.stderr[-3000:])
         log(f"CLI {argv[0]}: {wall:.2f} s (a new process: imports, the "
             "kernel library's load, cold caches)")
+        if counted:
+            return int(proc.stderr.strip().splitlines()[-1].split()[-1])
         return proc.stdout
 
     classes = os.path.join(d, "classes.txt")
@@ -2294,7 +2449,9 @@ def cli_phase(root, icm_dir, reads, cmap, out, fa):
         f"{'byte-identical' if same else 'DIFFER'}")
     assert same, "the CLI's glimmer-mg output differs from the API's"
 
-    run("classify", fa, icm_dir, "-o", os.path.join(d, "cls"))
+    launched = run("classify", fa, icm_dir, "-o", os.path.join(d, "cls"),
+                   counted=True)
+    count_raw_text("cli", {"written": 1, "launches": launched})
     raw = phymm.raw_phymm_name(fa)
     with open(os.path.join(d, "cls", raw), "rb") as a, \
             open(os.path.join(work, raw), "rb") as b:
@@ -2470,14 +2627,15 @@ def mesh_rank(work):
             out = os.path.join(work, f"cf_{data}x{model}_rank{rank}")
             os.makedirs(out)
             icm_cuda.reset_launches()
-            with last_k2() as k2:
+            with last_k2() as k2, raw_matrices() as rt:
                 pmesh.barrier()
                 t0 = time.perf_counter()
                 phymm.classify_file(spec["fa"], spec["icm_dir"], out_dir=out,
                                     device=dev, mesh=mesh)
                 torch.cuda.synchronize()
                 res["wall_s"][tag] = time.perf_counter() - t0
-            res["launches"][tag] = {"K2": icm_cuda.bank_walk_launches}
+            res["launches"][tag] = {"K2": icm_cuda.bank_walk_launches,
+                                    "raw_text": rt}
             same, shape, ms = k2_check(k2)
             block = k2["out"]
 
@@ -2634,12 +2792,13 @@ def mesh_phase(root, icm_dir, reads, cmap, out5, overflow5):
         out = os.path.join(work, "classify_1x1")
         os.makedirs(out)
         icm_cuda.reset_launches()
-        with last_k2() as k2_last:
+        with last_k2() as k2_last, raw_matrices() as rt:
             t0 = time.perf_counter()
             phymm.classify_file(fa, icm_dir, out_dir=out, device=dev,
                                 mesh=mesh)
             torch.cuda.synchronize()
             wall_c = time.perf_counter() - t0
+        count_raw_text("mesh", rt)
         k2_c = icm_cuda.bank_walk_launches
         got = dir_files(out)
         same_c = all(got[n] == phase6[n] for n in names)
@@ -2674,11 +2833,14 @@ def mesh_phase(root, icm_dir, reads, cmap, out5, overflow5):
 
         icm_cuda.reset_launches()
         t0 = time.perf_counter()
-        final = pipe.run_pipeline(fa_upper, icm_dir, device=dev, iterate=1,
-                                  taxonomy=taxonomy, mesh=mesh,
-                                  workdir=os.path.join(work, "pipe_1x1"))
+        with raw_matrices() as rt:
+            final = pipe.run_pipeline(fa_upper, icm_dir, device=dev,
+                                      iterate=1, taxonomy=taxonomy,
+                                      mesh=mesh,
+                                      workdir=os.path.join(work, "pipe_1x1"))
         torch.cuda.synchronize()
         wall_p = time.perf_counter() - t0
+        count_raw_text("mesh", rt)
         k1_p, k2_p = icm_cuda.launches, icm_cuda.bank_walk_launches
         got = dir_files(os.path.dirname(final))
         diff = sorted(n for n in set(got) | set(phase6b)
@@ -2745,6 +2907,11 @@ def mesh_phase(root, icm_dir, reads, cmap, out5, overflow5):
         assert all(x["bitwise"] for x in k)
         assert all(x["launches"][tag]["K2"] > 0 for x in ranks)
         k2 += sum(x["launches"][tag]["K2"] for x in ranks)
+        # rank 0 writes the one raw matrix, the kernel rendering it
+        rts = [x["launches"][tag]["raw_text"] for x in ranks]
+        assert all(r["written"] == (x["rank"] == 0)
+                   for r, x in zip(rts, ranks)), rts
+        count_raw_text("mesh", {k: sum(r[k] for r in rts) for k in rts[0]})
 
     tag = "EM 2x1"
     got = cluster_files(os.path.join(work, "em_2x1_rank0"))
@@ -2861,7 +3028,9 @@ def bench_phase(root):
             f"{levels} levels) [{gpu_line()}]")
 
     t0 = time.perf_counter()
-    acc_row = bench.gene_accuracy(sample_root, DEVICE, cache, sizes)
+    with raw_matrices() as rt:
+        acc_row = bench.gene_accuracy(sample_root, DEVICE, cache, sizes)
+    count_raw_text("bench", rt)
     log(json.dumps(acc_row))
     acc = acc_row["detail"]
     log(f"12 gene_accuracy in {time.perf_counter() - t0:.1f} s: "
@@ -2974,6 +3143,7 @@ def main(argv=None):
 
         record = sixframe_phase(gd, genomes, args.seed)
         k2_record, k2_int8_record = bankwalk_phase(bank, genomes, args.seed)
+        rt_record = rawtext_phase(args.seed)
 
         reads, cmap = sample_reads(genomes, args.reads, args.seed + 3)
         # pass 1 (cold: model construction, bank build) with the counts
@@ -3104,6 +3274,8 @@ def main(argv=None):
                                                       "bound_ms",
                                                       "bound_by")},
         "library_ms": None, "cases": kf_cases}
+    rt_record["launches"] = sum(RAW_TEXT.values())
+    rt_record["launches_by_path"] = dict(RAW_TEXT)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "kernel_ms", "kernel_ms_cold", "checked_ms", "launches_by_path",
@@ -3111,7 +3283,7 @@ def main(argv=None):
     print(gpu_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in
                                   (record, k2_record, k2_int8_record,
-                                   k3_record, kf_record)]}))
+                                   k3_record, kf_record, rt_record)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -121,6 +121,19 @@ def bind_event_dp(cdll: ctypes.CDLL) -> None:
     cdll.gmt_event_dp.restype = i
 
 
+def bind_raw_text(cdll: ctypes.CDLL) -> None:
+    """Set the ctypes signatures of the raw-text kernel's entry points on
+    ``cdll`` (the kernel library, or a library of its source alone)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    cdll.gmt_raw_text_measure.argtypes = [p, i, i, p, p, p]
+    cdll.gmt_raw_text_measure.restype = i
+    cdll.gmt_raw_text_write.argtypes = [p, i, i, p, p, p, p]
+    cdll.gmt_raw_text_write.restype = i
+    for name in ("gmt_raw_text_tile_reads", "gmt_raw_text_max_slot"):
+        getattr(cdll, name).argtypes = []
+        getattr(cdll, name).restype = i
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
@@ -138,5 +151,6 @@ def lib() -> ctypes.CDLL:
             cdll.gmt_bank_walk.restype = i
             bind_event_dp(cdll)
             bind_frontend(cdll)
+            bind_raw_text(cdll)
             _LIB = cdll
         return _LIB

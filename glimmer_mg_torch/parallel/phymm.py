@@ -27,7 +27,7 @@ import torch
 
 from ..engine.glimmer_mg import _check_device
 from ..models import icm as icm_mod
-from ..ops import icm_cuda, icm_score
+from ..ops import icm_cuda, icm_score, raw_text_cuda
 from ..utils import observe
 from . import classify as pclassify
 from . import mesh as pmesh
@@ -168,26 +168,31 @@ class PhymmBank:
 
 def write_raw_phymm_output(path, icm_paths, read_ids, scores) -> None:
     """scoreReadsGlim.pl raw matrix: one DATA row per ICM across reads.
-    Span ``phymm.raw_matrix``, its parts ``.text`` (the rows' ``%.4f``
-    text, summed) and ``.io`` (the writes and the close, summed); counter
-    ``raw_matrix_bytes``."""
+    The rows' ``%.4f`` text comes from ``ops.raw_text_cuda``: rendered on
+    the card for a float32 matrix when CUDA is available, else by its
+    plain loop (a float64 matrix, or no card); both give the same bytes.
+    The route follows the matrix and the machine, not the device the
+    caller scored on: a float32 matrix scored on the CPU of a machine with
+    a card still goes through the card and the kernel library, for the
+    price of an upload (blocking, from pageable memory) and two syncs.
+    Span ``phymm.raw_matrix``, its parts ``.text`` (the rows' text: on the
+    card its upload, kernels and download) and ``.io`` (the writes and the
+    close); counter ``raw_matrix_bytes``."""
     with observe.span("phymm.raw_matrix", rows=len(icm_paths),
                       reads=len(read_ids)) as sp, open(path, "w") as fh:
-        text, io = sp.part("text"), sp.part("io")
-        with io:
-            fh.write("BEGIN_ICM_LIST\n")
-            for p in icm_paths:
-                fh.write(p + "\n")
-            fh.write("END_ICM_LIST\nBEGIN_READID_LIST\n")
-            for r in read_ids:
-                fh.write(r + "\n")
-            fh.write("END_READID_LIST\nBEGIN_DATA_MATRIX\n")
-        for g in range(len(icm_paths)):
-            with text:
-                line = " ".join("%.4f" % s for s in scores[:, g]) + "\n"
-            with io:
-                fh.write(line)
-        with io:
+        with sp.part("text"):
+            t = torch.from_numpy(np.ascontiguousarray(scores))
+            if t.dtype == torch.float32 and torch.cuda.is_available():
+                t = t.to("cuda")
+            body = raw_text_cuda.rows_text(t)
+        with sp.part("io"):
+            fh.write("".join(["BEGIN_ICM_LIST\n"]
+                             + [p + "\n" for p in icm_paths]
+                             + ["END_ICM_LIST\nBEGIN_READID_LIST\n"]
+                             + [r + "\n" for r in read_ids]
+                             + ["END_READID_LIST\nBEGIN_DATA_MATRIX\n"]))
+            fh.flush()
+            fh.buffer.write(body)
             fh.write("END_DATA_MATRIX\n")
             if observe.enabled():
                 observe.count("raw_matrix_bytes", fh.tell())

@@ -82,7 +82,8 @@ _FOLDED = (("ops.icm_cuda", "launches", "six_frame_launches"),
            ("ops.icm_cuda", "bank_walk_int8_launches",
             "bank_walk_int8_launches"),
            ("ops.frontend_cuda", "launches", "frontend_launches"),
-           ("ops.event_dp_cuda", "launches", "event_dp_launches"))
+           ("ops.event_dp_cuda", "launches", "event_dp_launches"),
+           ("ops.raw_text_cuda", "launches", "raw_text_launches"))
 
 
 class SpanRecord(NamedTuple):

@@ -149,11 +149,12 @@ def test_counters_add_up_across_threads():
 
 
 def test_snapshot_folds_in_the_ports_counters():
-    from glimmer_mg_torch.ops import icm_cuda
+    from glimmer_mg_torch.ops import icm_cuda, raw_text_cuda
 
     c = observe.snapshot()["counters"]
     assert c["bank_walk_launches"] == icm_cuda.bank_walk_launches
     assert c["six_frame_launches"] == icm_cuda.launches
+    assert c["raw_text_launches"] == raw_text_cuda.launches
     for k, v in tmg.counters.items():
         assert c[k] == v
 
@@ -255,7 +256,7 @@ def test_phymm_files_are_identical_on_and_off(bank, tmp_path):
     b, reads = bank
     ids = [h for h, _ in reads]
     scores = b.score_reads([s.lower() for _, s in reads], batch=16)
-    scores[3, 1] = -0.00005  # rounds to "-0.0001" in both
+    scores[3, 1] = -0.00005  # rounds to "-0.0000" in both
     tax = {phymm.path_to_genome(b.paths[0]).split("|")[0]:
            ("g", "f", "o", "c", "p")}
     _plain_raw(tmp_path / "plain_raw", b.paths, ids, scores)
