@@ -6,7 +6,9 @@ gene count), never the padding.
 KF's and K3's counts follow chip_smoke.py's ``kf_bytes`` and ``k3_bytes``
 at commit ab5a5d3, tightened to the rows each read really has; K2's
 follows chip_smoke.py's bank-walk bound (all the bank's tables, which a
-batch's walks cover); K1's counts the table entries its walks read.
+batch's walks cover); K1's counts the table entries its walks read; KT's,
+the raw-text kernels', follows chip_smoke.py's raw-text bound (the scores
+in, the text out).
 
 A launch's record is taken while the window runs and holds no value that
 needs a device sync; ``resolve`` finishes it after the window.
@@ -73,6 +75,13 @@ def k2_record(level_mip, probs_pk, reads, lengths, out):
              + out.nbytes)
     return {"fixed": fixed,
             "terms": [(reads.element_size(), _sum(lengths))]}
+
+
+def kt_record(scores, text):
+    """KT: the float32 score matrix in; out, the text of its rows (the
+    kernels' scratch of widths and offsets is neither)."""
+    return {"fixed": scores.numel() * scores.element_size() + len(text),
+            "terms": []}
 
 
 def k1_record(reads, lengths, group, models, model_len, depth):

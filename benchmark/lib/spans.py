@@ -1,6 +1,7 @@
-"""Spans and launch records of the traced run, from wrappers around the
-layers' entry functions (the benchmark's own files; the program has no
-spans of its own).
+"""Spans and launch records of the traced run, from the harness's wrappers
+around entry functions: a kernel's launch records (its byte counts), and
+the prediction layers' times until their cell reads the program's own
+spans (``lib/program.py`` reads those).
 
 A wrapper records (name, thread, start, end) on the host clock, under a
 ``torch.profiler.record_function`` of the same name so that the device

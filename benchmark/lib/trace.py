@@ -4,7 +4,9 @@ window, its Chrome trace read back.
 Device activity is every kernel, copy and set on the device whose launch
 (the runtime call with the same correlation id) falls inside the window's
 annotation; busy time is their union inside the window. Kernels are
-named by the sources' ``__global__`` names.
+named by the sources' ``__global__`` names. The device's idle gaps are
+labelled by the program's whole spans (``lib/program.py``) open at each
+gap's middle, mapped onto the trace's clock by the program's anchor.
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ import re
 WINDOW = "bench_window"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the hand-written kernels: K1 csrc/six_frame.cu, KF csrc/frontend.cu,
-# K3 csrc/event_dp.cu, K2 csrc/bank_walk.cu (three kernels a launch)
+# K3 csrc/event_dp.cu, K2 csrc/bank_walk.cu (three kernels a launch), KT
+# csrc/raw_text.cu (four kernels a launch)
 KERNELS = {"k1": re.compile(r"\bsix_frame_kernel\b"),
            "kf": re.compile(r"\bfrontend_kernel\b"),
            "k3": re.compile(r"\bevent_dp_kernel\b"),
-           "k2": re.compile(r"\b(prep|walk|finish)_kernel\b")}
+           "k2": re.compile(r"\b(prep|walk|finish)_kernel\b"),
+           "kt": re.compile(r"\b(measure|rows|place|write)_kernel\b")}
+OUTSIDE = "outside the program's spans"
 
 
 def short(name):
@@ -59,7 +64,9 @@ def _union(iv):
 class DeviceTrace:
     """What the metrics read of the device trace (seconds)."""
 
-    def __init__(self, events, span_names):
+    def __init__(self, events, program_spans=lambda events: []):
+        """``program_spans(events)``: the program's whole spans as Chrome
+        trace events on the clock of ``events``."""
         win = [e for e in events if e.get("name") == WINDOW
                and e.get("ph") == "X"]
         if not win:
@@ -96,27 +103,35 @@ class DeviceTrace:
                     if rx.search(e["name"]):
                         self.kernel_s[k].append(d)
         self.top_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-        # idle gaps, by the host spans open at each gap's middle
-        spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                 for e in events if e.get("cat") == "user_annotation"
-                 and e.get("name") in span_names and e.get("ph") == "X"]
+        # idle gaps, by the innermost program span each thread has open at
+        # each gap's middle
+        spans = [(e["name"], e["tid"], float(e["ts"]),
+                  float(e["ts"]) + float(e["dur"]))
+                 for e in program_spans(events)]
         gaps = collections.defaultdict(float)
         edges = [w0] + [x for s, e in merged for x in (s, e)] + [w1]
         mids = sorted((0.5 * (s + e), (e - s) * 1e-6)
                       for s, e in zip(edges[0::2], edges[1::2]) if e > s)
-        marks = sorted([(a, 1, n) for n, a, _b in spans]
-                       + [(b, -1, n) for n, _a, b in spans])
-        open_, k = collections.Counter(), 0
+        # (time, 0 opens / 1 closes, span): a span opens before it closes
+        marks = sorted([(a, 0, k) for k, (_n, _t, a, _b) in enumerate(spans)]
+                       + [(b, 1, k) for k, (_n, _t, _a, b)
+                          in enumerate(spans)])
+        open_, k = set(), 0
         for mid, secs in mids:  # one sweep over the spans' edges
             while k < len(marks) and marks[k][0] <= mid:
-                open_[marks[k][2]] += marks[k][1]
+                (open_.discard if marks[k][1] else open_.add)(marks[k][2])
                 k += 1
-            label = "+".join(sorted(n for n, c in open_.items() if c > 0))
-            gaps[label or "outside the layers' spans"] += secs
+            inner = {}
+            for j in open_:
+                name, tid, a, _b = spans[j]
+                if tid not in inner or a > inner[tid][0]:
+                    inner[tid] = (a, name)
+            label = "+".join(sorted(n for _a, n in inner.values()))
+            gaps[label or OUTSIDE] += secs
         self.idle_gaps = sorted(gaps.items(), key=lambda kv: -kv[1])[:10]
 
 
-def read(prof, tmp_dir, span_names) -> DeviceTrace:
+def read(prof, tmp_dir, program_spans=lambda events: []) -> DeviceTrace:
     path = os.path.join(tmp_dir, "trace.json")
     prof.export_chrome_trace(path)
     try:
@@ -125,4 +140,4 @@ def read(prof, tmp_dir, span_names) -> DeviceTrace:
     finally:
         os.remove(path)
     events = data["traceEvents"] if isinstance(data, dict) else data
-    return DeviceTrace(events, set(span_names))
+    return DeviceTrace(events, program_spans)

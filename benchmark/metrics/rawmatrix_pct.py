@@ -1,10 +1,11 @@
-"""Share of the window inside write_raw_phymm_output and write_results_table
-(classification's output text), host clock."""
+"""Share of the window inside the program's spans phymm.raw_matrix and
+phymm.results_table (write_raw_phymm_output and write_results_table,
+classification's output: text and writes), host clock."""
 
-from benchmark.metrics._share import span_pct
+from benchmark.metrics._share import program_pct
 
 UNIT = "%"
 
 
 def read(t):
-    return span_pct(t, "raw_matrix", "results_table")
+    return program_pct(t, "phymm.raw_matrix", "phymm.results_table")

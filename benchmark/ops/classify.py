@@ -7,7 +7,13 @@ file, ``write_raw_phymm_output`` and ``write_results_table``, as
 
 Traffic keys: ``pool_reads`` (reads made at set-up, written as FASTA
 files of ``file_reads`` each), ``warmup_reads``, ``check_per_file``
-(reads a written file is checked on), ``fasta_width`` (bases a line).
+(reads a written file is checked on), ``fasta_width`` (bases a line),
+``check_file_share`` (the chance, drawn from the seed, that a file the
+window wrote is kept for the check; 1 when absent).
+
+The window deletes each pair of output files it does not keep as soon as
+it is written, before the page cache writes it back, so that a run
+writes about a GB to disk and not every file of the window (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -63,6 +69,8 @@ class Op:
             write_fasta(path, reads[lo:lo + n], width)
             self.files.append((path, len(reads[lo:lo + n])))
         self.lengths = {h: len(s) for h, s in reads}
+        longest = max(range(len(reads)), key=lambda i: len(reads[i][1]))
+        self.longest_file = longest // n
         ctx.log(f"bytes written at set-up (the pool's FASTA files) "
                 f"{sum(os.path.getsize(p) for p, _n in self.files)}")
         warm, _c, _q = make_reads(self.db, spec, self.t["warmup_reads"], rng,
@@ -119,44 +127,70 @@ class Op:
         return raw, table, prog
 
     def spans(self):
-        from glimmer_mg_torch.ops import icm_cuda
-        from glimmer_mg_torch.parallel import phymm
+        """The harness's wrappers that keep a launch record: K2's and KT's
+        byte counts. The layers' times are the program's own spans."""
+        from glimmer_mg_torch.ops import icm_cuda, raw_text_cuda
 
         def keep_k2(local, res, level_mip, probs_pk, reads, lengths, *a,
                     **kw):
             return counts.k2_record(level_mip, probs_pk, reads, lengths, res)
 
+        def keep_kt(local, res, scores):
+            if scores.device.type != "cuda":  # the plain loop, not KT
+                return None
+            return counts.kt_record(scores, res)
+
         return [(icm_cuda, "bank_score_both_strands", "k2", keep_k2),
-                (phymm, "write_raw_phymm_output", "raw_matrix", None),
-                (phymm, "write_results_table", "results_table", None),
-                (phymm.PhymmBank, "score_reads", "score_reads", None)]
+                (raw_text_cuda, "rows_text", "kt", keep_kt)]
 
     def counters(self):
-        return {}
+        from glimmer_mg_torch.utils import observe
+
+        return observe.snapshot()["counters"]
 
     def window(self, seconds, opened=lambda: None, closed=lambda: None):
         """Classify the pool's files in turn (again from the first if they
         run out) until the first file that ends after ``seconds``."""
-        self.written = []  # (input file, raw, table)
-        count = fed_twice = 0
+        self.written = []  # (input file, raw, table) kept for the check
+        keep_rng = np.random.default_rng([self.ctx.seed, 2])
+        share = self.t.get("check_file_share", 1.0)
+        count = fed_twice = written = 0
+        longest_kept = False
         opened()
         t0 = time.perf_counter()
         end = t0 + seconds
         k = 0
+        marks = [t0]
         while True:
             src, n = self.files[k % len(self.files)]
             raw, table, prog = self._one_file(src, f"w{k:04d}")
             os.remove(prog)
-            self.written.append((src, raw, table))
+            written += os.path.getsize(raw) + os.path.getsize(table)
+            last = time.perf_counter() >= end
+            # kept: a seeded share, the first with the longest read, the last
+            holds = k % len(self.files) == self.longest_file
+            keep = (keep_rng.random() < share or last
+                    or (holds and not longest_kept))
+            if keep:
+                longest_kept |= holds
+                self.written.append((src, raw, table))
+            else:
+                os.remove(raw)
+                os.remove(table)
             count += n
             fed_twice += n if k >= len(self.files) else 0
             k += 1
-            if time.perf_counter() >= end:
+            marks.append(time.perf_counter())
+            if last:
                 break
-        t1 = time.perf_counter()
+        t1 = marks[-1]
         closed()
-        written = sum(os.path.getsize(p) for _s, r, t in self.written
-                      for p in (r, t))
+        self.ctx.log("seconds a file in the window: " + " ".join(
+            f"{b - a:.4f}" for a, b in zip(marks, marks[1:])))
+        kept = sum(os.path.getsize(p) for _s, r, t in self.written
+                   for p in (r, t))
+        self.ctx.log(f"files kept for the check {len(self.written)} of {k}, "
+                     f"{kept} bytes")
         return {"count": count, "seconds": t1 - t0, "fed_twice": fed_twice,
                 "attempted": count, "failed": 0, "bytes_written": written}
 

@@ -9,8 +9,11 @@ Set-up (the program's import and kernel build, the database, the reads,
 a warm-up of the cell's shapes, and the fill of a pipeline before its
 first output) is timed as ``setup_s``; the window then drives the
 program for at least ``--seconds`` and ends at the first output boundary
-after it. With ``--trace 1`` the window runs under spans
-and the device profiler and the line carries the per-layer metrics.
+after it. With ``--trace 1`` the program's own recorder
+(``glimmer_mg_torch.utils.observe``) runs from before set-up to the
+window's end, the window runs under the device profiler and the
+harness's launch wrappers, and the line carries the per-layer metrics;
+untraced, the recorder stays off.
 Once the window has closed the plain reference checks a seeded sample of
 what the window produced; each number compared is printed beside its
 limit, as the last lines of standard error and under "checks", the last
@@ -33,6 +36,7 @@ import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
+import threading  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -112,7 +116,8 @@ def main(argv=None, *, bench_dir=HERE, device="cuda", t_start=None):
 def _run(args, cell, bench_dir, device, t_start, cache_dir, tmp_dir):
     import torch
 
-    from benchmark.lib import counts, cpu, spans as spans_mod, spec, trace
+    from benchmark.lib import counts, cpu, program, spans as spans_mod, \
+        spec, trace
 
     cuda = device == "cuda"
     ctx = SimpleNamespace(
@@ -124,52 +129,62 @@ def _run(args, cell, bench_dir, device, t_start, cache_dir, tmp_dir):
         log(f"card: {card_line()}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}")
     op = spec.load_module(cell.op_path, "bench_op").Op(ctx)
-    op.setup()
-    ctx.sync()
-    setup_s = time.perf_counter() - t_start
-    log(f"set-up before the window's call {setup_s:.3f} s")
+    observe = None
+    if args.trace:  # the program's recorder, from before set-up
+        from glimmer_mg_torch.utils import observe
 
-    rec = spans_mod.Recorder()
-    names = []
-    if args.trace:
-        for obj, attr, name, keep in op.spans():
-            rec.wrap(obj, attr, name, keep)
-            names.append(name)
-    c0 = op.counters()
-    at_close = {}
-    stack = contextlib.ExitStack()
-    prof = None
-    if args.trace:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if cuda:
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
-        rec.active = True
-
-    def opened():
-        at_close["c0"] = op.counters()
-        at_close["cpu0"] = cpu.snapshot()
-        if args.trace:
-            stack.enter_context(torch.profiler.record_function(
-                trace.WINDOW))
-            rec.opened()
-
-    def closed():
-        if "counters" not in at_close:  # the first call, at the window's end
-            at_close["cpu1"] = cpu.snapshot()
-            at_close["counters"] = op.counters()
-            rec.closed()
-        stack.close()
-
+        observe.reset()
+        observe.enable()
     try:
-        w = op.window(args.seconds, opened, closed)
+        op.setup()
         ctx.sync()
+        setup_s = time.perf_counter() - t_start
+        log(f"set-up before the window's call {setup_s:.3f} s")
+
+        rec = spans_mod.Recorder()
+        if args.trace:
+            for obj, attr, name, keep in op.spans():
+                rec.wrap(obj, attr, name, keep)
+        c0 = op.counters()
+        at_close = {}
+        stack = contextlib.ExitStack()
+        prof = None
+        if args.trace:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            rec.active = True
+
+        def opened():
+            at_close["c0"] = op.counters()
+            at_close["cpu0"] = cpu.snapshot()
+            if args.trace:
+                at_close["anchor"] = stack.enter_context(
+                    observe.Anchor(trace.WINDOW))
+                rec.opened()
+
+        def closed():
+            stack.close()  # the window's anchor closes first
+            if "counters" not in at_close:  # the first call, at the end
+                at_close["cpu1"] = cpu.snapshot()
+                at_close["counters"] = op.counters()
+                rec.closed()
+
+        try:
+            w = op.window(args.seconds, opened, closed)
+            ctx.sync()
+        finally:
+            closed()
+            if prof is not None:
+                prof.stop()
+            rec.restore()
+        snap = observe.snapshot() if args.trace else None
     finally:
-        closed()
-        if prof is not None:
-            prof.stop()
-        rec.restore()
+        if observe is not None:
+            observe.disable()
+            observe.reset()
     # the time before the window opened (a pipeline's fill) is set-up
     setup_s += w.get("fill_s", 0.0)
     c0 = at_close.get("c0", c0)
@@ -194,12 +209,32 @@ def _run(args, cell, bench_dir, device, t_start, cache_dir, tmp_dir):
 
     result_metrics, dev_extra, breakdown = {}, {}, None
     if args.trace:
-        dt = trace.read(prof, tmp_dir, names)
+        anchor = at_close["anchor"]
+        t_open, t_close = anchor.t_open, anchor.t_close
+        wholes = dict(snap, spans=program.wholes(snap["spans"]))
+        residual = []
+
+        def program_spans(events):
+            """The program's whole spans on the trace's clock."""
+            ev, res = observe.trace_events(wholes, anchor, events)
+            residual.append(res)
+            return [e for e in ev if e["ph"] == "X"]
+
+        dt = trace.read(prof, tmp_dir, program_spans)
         prof = None
+        log(f"program spans: {len(snap['spans'])} records; the anchor's "
+            f"residual {residual[0]!r} us")
         data = SimpleNamespace(
             operation=op.operation, window_s=dt.window_s,
             host_window_s=w["seconds"], cpu_s=w["cpu_s"],
             spans=rec.seconds(),
+            program_window_s=(t_close - t_open) / 1e9,
+            program_spans=program.in_window(snap["spans"], t_open, t_close),
+            program_spans_setup=program.before(snap["spans"], t_open),
+            main_unspanned_s=program.unspanned(
+                snap["spans"], threading.main_thread().native_id, t_open,
+                t_close),
+            setup_s=setup_s,
             counters={k: c1[k] - c0.get(k, 0) for k in c1},
             kernel_s=dt.kernel_s,
             launch_bytes={k: [counts.resolve(r) for r in v]
@@ -212,6 +247,8 @@ def _run(args, cell, bench_dir, device, t_start, cache_dir, tmp_dir):
                 f"{sum(data.launch_bytes[k])} bytes; device "
                 f"{sum(dt.kernel_s.get(k, []))} s over "
                 f"{len(dt.kernel_s.get(k, []))} kernels")
+        log("program spans in the window (s): " + json.dumps(
+            {k: round(v, 6) for k, v in sorted(data.program_spans.items())}))
         for name, mod in spec.metric_readers(bench_dir).items():
             v = mod.read(data)
             if v is not None:

@@ -156,3 +156,60 @@ def test_k1_table_entries_ignore_padding(db):
         reads, torch.tensor([200, 100, 512], dtype=torch.int32), group,
         models, 12, 7))
     assert c < a
+
+
+def test_kt_bytes_are_the_scores_and_their_text():
+    """KT's count: the float32 matrix read once and its rows' text,
+    whose length is that of the plain loop's text."""
+    from glimmer_mg_torch.ops.raw_text_cuda import plain_rows
+
+    scores = torch.tensor([[-1.5, 0.0, 12.25], [3.0, -0.00005, 1e6]],
+                          dtype=torch.float32)
+    text = plain_rows(scores.numpy()).encode("ascii")
+    assert text == (b"-1.5000 3.0000\n0.0000 -0.0000\n"
+                    b"12.2500 1000000.0000\n")
+    rec = counts.kt_record(scores, text)
+    assert counts.resolve(rec) == 6 * 4 + len(text) == 24 + 51
+
+
+@pytest.mark.parametrize("share,seed", [(0.0, 1), (0.5, 3000000019),
+                                        (1.0, 7)])
+def test_classify_window_keeps_a_seeded_share_of_its_files(tmp_path, share,
+                                                           seed):
+    """The window keeps for the check a seeded share of the files it
+    writes, the first holding the longest read and the last, and deletes
+    every other raw matrix and table as soon as it is written."""
+    import time
+    from types import SimpleNamespace
+
+    from benchmark.ops.classify import Op
+
+    ctx = SimpleNamespace(seed=seed, control=None, traffic={
+        "check_file_share": share}, log=lambda m: None)
+    op = Op(ctx)
+    op.files = [(f"in{i}.fasta", 10) for i in range(3)]
+    op.longest_file = 1
+
+    def one_file(src, tag):
+        time.sleep(0.01)
+        paths = [str(tmp_path / f"{tag}.{x}") for x in ("raw", "tab", "prog")]
+        for p in paths:
+            with open(p, "w") as fh:
+                fh.write(tag)
+        return paths
+
+    op._one_file = one_file
+    w = op.window(0.2)
+    n = w["count"] // 10
+    tags = [f"w{k:04d}" for k in range(n)]
+    kept = [t for t in tags if (tmp_path / f"{t}.raw").exists()]
+    assert [os.path.basename(r).split(".")[0] for _s, r, _t in op.written] \
+        == kept
+    assert all((tmp_path / f"{t}.tab").exists() == (t in kept)
+               for t in tags)
+    assert not any((tmp_path / f"{t}.prog").exists() for t in tags)
+    draws = np.random.default_rng([seed, 2]).random(n)
+    want = {tags[-1], tags[1]} | {t for t, d in zip(tags, draws)
+                                  if d < share}
+    assert n >= 3 and set(kept) == want
+    assert w["bytes_written"] == 2 * sum(len(t) for t in tags)

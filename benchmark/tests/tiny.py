@@ -34,6 +34,7 @@ TRAFFIC = {
               "options": {"allow_subs": True, "chunk_size": 32}},
     "tclassify": {"operation": "classify", "pool_reads": 96,
                   "file_reads": 40, "warmup_reads": 20, "check_per_file": 4,
+                  "check_file_share": 0.5,
                   "fasta_width": 60},
 }
 CELLS = {
