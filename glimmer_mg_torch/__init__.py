@@ -21,6 +21,7 @@ is the port's own:
   parallel/classify.py  classification steps (both strands, per-read max),
                         on one rank or over a mesh
   parallel/phymm.py     PhymmBank, classify_file, Phymm file formats
+  io/fasta_share.py     a rank's share of a FASTA file, read and encoded
   parallel/mesh.py      the (data, model) mesh of ranks on
                         torch.distributed and its sharding helpers
   parallel/predict.py   device prediction sharded over the data axis

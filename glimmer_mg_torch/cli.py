@@ -629,7 +629,9 @@ def cmd_classify(argv):
     p.add_argument("sequence_file")
     p.add_argument("icm_dir")
     p.add_argument("-o", "--out_dir", default=".")
-    p.add_argument("--batch", type=int, default=512)
+    p.add_argument("--batch", type=int, default=512,
+                   help="reads a bank-walk launch (with --mesh, of a "
+                        "rank's own reads)")
     p.add_argument("--mesh", metavar="DATA,MODEL",
                    help="shard over a (data, model) device mesh, e.g. 4,2 "
                         "(the reference phymm_par.py -p fan-out)")

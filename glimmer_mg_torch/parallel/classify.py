@@ -64,9 +64,11 @@ def classify_step_kernel_sharded(mesh, level_mip, probs_pk, reads, lengths,
     (``mesh.shard_bank``), ``reads`` and ``lengths`` its slice of the
     batch along ``data`` (``mesh.shard_reads``): the reference's two
     phymm_par.py fan-out modes at once (ICM-sharded :146-200, read-sharded
-    :210-261), with the all-gather as the file merge. Returns (scores
-    (B, M) f32, best (B,) int32) numpy, the whole matrix on every rank in
-    global order, so the argmax breaks ties as the one-rank run does.
+    :210-261), with one all-gather over the world as the file merge
+    (``mesh.materialize``). Returns (scores (B, M) f32, best (B,) int32)
+    numpy, the whole matrix on every rank in global order, so the argmax
+    breaks ties as the one-rank run does. ``parallel.phymm.classify_file``
+    walks a rank's whole share of a file before its one gather.
     """
     block = icm_cuda.bank_score_both_strands(level_mip, probs_pk, reads,
                                              lengths, model_len, depth)

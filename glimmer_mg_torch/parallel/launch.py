@@ -3,7 +3,7 @@
 ``run_local(argv, n)`` starts ``n`` processes of ``python argv...``, each
 with the environment a launcher gives its ranks (``RANK``,
 ``LOCAL_RANK``, ``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
-``MASTER_PORT`` on a free local port), so that
+``MASTER_PORT`` on a free local port: ``rank_env``), so that
 ``parallel.mesh.init_distributed()`` joins them into one world; a
 ``{rank}`` in an argument becomes the rank's number. It waits
 for all of them within ``timeout`` seconds. When one fails or the time
@@ -28,15 +28,24 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def rank_env(rank: int, n: int, port: int, env=None) -> dict:
+    """The environment a launcher gives rank ``rank`` of ``n`` on this
+    machine, whose rank 0 serves the rendezvous on ``port``: ``env`` (this
+    process's when None) with the launcher's variables set."""
+    out = dict(os.environ if env is None else env)
+    out.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n), RANK=str(rank),
+               LOCAL_RANK=str(rank))
+    return out
+
+
 def run_local(argv, n: int, *, timeout: float, env=None,
               cwd=None) -> list[str]:
     """Run ``n`` ranks of ``[sys.executable, *argv]``; returns each rank's
     output (stdout and stderr), in rank order. Raises RuntimeError when a
     rank exits non-zero or the ranks outlast ``timeout`` seconds; no rank
     outlives the call."""
-    base = dict(os.environ if env is None else env)
-    base.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
-                WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n))
+    port = free_port()
     expired = False
     with tempfile.TemporaryDirectory(prefix="gmt_ranks_") as logs:
         procs, files = [], []
@@ -48,7 +57,7 @@ def run_local(argv, n: int, *, timeout: float, env=None,
                     [sys.executable, *(a.replace("{rank}", str(r))
                                        for a in argv)], stdout=fh,
                     stderr=subprocess.STDOUT, cwd=cwd,
-                    env=dict(base, RANK=str(r), LOCAL_RANK=str(r))))
+                    env=rank_env(r, n, port, env)))
             deadline = time.monotonic() + timeout
             while True:
                 codes = [p.poll() for p in procs]  # every rank, each time

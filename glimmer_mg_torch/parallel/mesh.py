@@ -8,11 +8,19 @@ the axes ``data`` and ``model`` (SURVEY §2.4):
 
   * ``model``: the ICM bank's rows are split over the ranks of a model
     group; each rank scores its reads against its slice of the bank, and
-    the all-gather over the model group is the file merge of the
-    reference's ICM-sharded phymm_par mode (scripts/phymm_par.py:146-200);
-  * ``data``: read batches are split over the ranks of a data group (the
+    gathering the slices is the file merge of the reference's ICM-sharded
+    phymm_par mode (scripts/phymm_par.py:146-200);
+  * ``data``: reads are split over the ranks of a data group (the
     read-sharded mode, phymm_par.py:210-261); the bank trainer's count
     histograms are summed over it.
+
+``make_mesh`` puts rank r at (r // model, r % model), so one all-gather
+over the world brings every block in mesh order (``gather_blocks``).
+While the recorder (``utils.observe``) is on, every collective here adds
+1 to the counter ``mesh_collectives`` and the bytes a ring sends and
+receives on this rank to ``mesh_bytes``: 2 (n - 1) b for an all-gather of
+b bytes a rank over n ranks, 4 (n - 1) b / n for an all-reduce of b
+bytes, none for a barrier.
 
 The backend follows the device: NCCL for CUDA, gloo for the CPU; only the
 caller may name another (``backend=``). gloo's all-gather has no CUDA
@@ -28,6 +36,8 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils import observe
 
 AXES = ("data", "model")
 # any of these in the environment means a launcher (torchrun) started us
@@ -202,16 +212,37 @@ def _staged(x, group):
     return x.cpu() if dist.get_backend(group) == "gloo" else x
 
 
-def _gather(x, group, dim: int = 0):
-    """Concatenation along ``dim`` of every group rank's ``x`` (all the
-    same shape), in group-rank order: the mesh coordinate's order."""
+def _count(nbytes: int) -> None:
+    if observe.enabled():
+        observe.count("mesh_collectives")
+        observe.count("mesh_bytes", nbytes)
+
+
+def _comm_device() -> torch.device:
+    """Where the world's backend takes tensors: this rank's card for NCCL,
+    host memory otherwise."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _all_gather(x, group=None) -> list:
+    """Every group rank's ``x`` (all the same shape), in group-rank order,
+    where the backend takes them."""
     n = dist.get_world_size(group)
-    if n == 1:
-        return x
     x = _staged(x, group).contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    _count(2 * (n - 1) * x.numel() * x.element_size())
+    return parts
+
+
+def _gather(x, group, dim: int = 0):
+    """Concatenation along ``dim`` of every group rank's ``x`` (all the
+    same shape), in group-rank order: the mesh coordinate's order."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return torch.cat(_all_gather(x, group), dim=dim)
 
 
 def all_reduce_sum(x, group):
@@ -220,22 +251,70 @@ def all_reduce_sum(x, group):
         return x
     y = _staged(x, group)
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    n = dist.get_world_size(group)
+    _count(4 * (n - 1) * y.numel() * y.element_size() // n)
     return y if y is x else y.to(x.device)
+
+
+def gather_blocks(mesh, block, rows=None):
+    """The whole matrix of every rank's block, in global order, on
+    ``block``'s device: one all-gather over the world (span
+    ``mesh.gather``).
+
+    ``block`` is this rank's (reads x models) block: the rows of its data
+    coordinate's reads and the columns of its model slice. ``rows`` gives
+    the reads of each data coordinate, which may differ (the blocks are
+    padded to the most for the gather); without it every block has as
+    many rows as this one."""
+    data, model = mesh.shape
+    if data * model == 1:
+        return block
+    rows = [block.shape[0]] * data if rows is None else [int(r) for r in rows]
+    pad = max(rows) - block.shape[0]
+    with observe.span("mesh.gather", rows=max(rows)):
+        if pad:
+            block = torch.cat([block, block.new_zeros(
+                (pad,) + tuple(block.shape[1:]))])
+        parts = _all_gather(block)
+        whole = torch.cat([torch.cat(parts[i * model:(i + 1) * model],
+                                     dim=1)[:rows[i]] for i in range(data)])
+        return whole.to(block.device)
+
+
+def exchange(values) -> np.ndarray:
+    """(world, k) int64: every rank's ``values`` (k integers), in rank
+    order; one all-gather (span ``mesh.offsets``)."""
+    with observe.span("mesh.offsets"):
+        x = torch.tensor([int(v) for v in values], dtype=torch.int64)
+        return torch.stack(_all_gather(x.to(_comm_device()))).cpu().numpy()
+
+
+def gather_bytes(data: bytes, sizes) -> list[bytes]:
+    """Every rank's ``data``, in rank order, given each rank's size
+    (``sizes``, as ``exchange`` gives them); one all-gather (span
+    ``mesh.gather``)."""
+    sizes = [int(n) for n in sizes]
+    with observe.span("mesh.gather", bytes=sum(sizes)):
+        x = np.zeros(max(sizes), np.uint8)
+        x[:len(data)] = np.frombuffer(data, np.uint8)
+        parts = _all_gather(torch.from_numpy(x).to(_comm_device()))
+        return [p[:n].cpu().numpy().tobytes() for p, n in zip(parts, sizes)]
 
 
 def materialize(mesh, x, model_dim: int | None = 1) -> np.ndarray:
     """The whole array of a sharded block as host numpy, on every rank.
 
-    ``x`` is this rank's block: rows (dim 0) split along ``data`` and, when
-    ``model_dim`` is not None, that dim split along ``model``. The blocks
-    are all-gathered over the model group, then over the data group, so the
-    result is in global order (the reference's file-merge join,
-    scripts/phymm_par.py:410-474, as a collective). Without a mesh it is
+    ``x`` is this rank's block: rows (dim 0) split evenly along ``data``
+    and, when ``model_dim`` is 1, columns split along ``model``
+    (``gather_blocks``: the reference's file-merge join,
+    scripts/phymm_par.py:410-474, as one collective); with ``model_dim``
+    None, the data group's blocks are gathered. Without a mesh it is
     ``x`` as numpy."""
     if mesh is not None:
-        if model_dim is not None:
-            x = _gather(x, mesh.get_group("model"), model_dim)
-        x = _gather(x, mesh.get_group("data"), 0)
+        if model_dim not in (1, None):
+            raise ValueError(f"model_dim must be 1 or None, not {model_dim}")
+        x = (gather_blocks(mesh, x) if model_dim == 1
+             else _gather(x, mesh.get_group("data"), 0))
     return x.cpu().numpy()
 
 
@@ -245,10 +324,20 @@ def is_output_process() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def one_host() -> bool:
+    """True when every rank of the world runs on this host, as the
+    launcher says (``LOCAL_WORLD_SIZE`` equal to the world's size)."""
+    return (dist.is_initialized() and os.environ.get("LOCAL_WORLD_SIZE")
+            == str(dist.get_world_size()))
+
+
 def barrier() -> None:
-    """Wait for every rank of the world (no-op without one)."""
+    """Wait for every rank of the world (no-op without one); span
+    ``mesh.barrier``."""
     if dist.is_initialized():
-        dist.barrier()
+        with observe.span("mesh.barrier"):
+            dist.barrier()
+            _count(0)
 
 
 def destroy() -> None:

@@ -8,8 +8,9 @@ from files. Here the whole bank is a stack of tables on the device, scored
 in one launch per read batch, both strands, by the bank-walk kernel
 (``csrc/bank_walk.cu``); the "merge" is the per-read argmax. Over a
 (data, model) mesh of ranks (``parallel.mesh``) each rank holds its slice
-of the bank and scores its slice of each batch, and the blocks are
-all-gathered: the reference's two fan-out modes at once.
+of the bank, reads, scores and writes its share of each file's reads,
+and the blocks are all-gathered once a file: the reference's two fan-out
+modes at once (``classify_file``).
 
 File-format parity: writes and reads the reference's rawPhymmOutput_*.txt
 (BEGIN_ICM_LIST / BEGIN_READID_LIST / BEGIN_DATA_MATRIX, one row per ICM;
@@ -20,6 +21,7 @@ The file helpers are copies of the JAX package's: its module imports JAX.
 from __future__ import annotations
 
 import glob
+import locale
 import os
 
 import numpy as np
@@ -107,14 +109,10 @@ class PhymmBank:
         utils.observe.ProgressLog advanced once per read (the reference's
         *_progress.txt, scoreReadsGlim.pl:417).
 
-        With the bank's mesh, each batch is zero-padded to a multiple of
-        the data axis and sharded over it, scored against the rank's model
-        slice (``classify_step_kernel_sharded``) and gathered; the pad
-        rows and models are sliced off. Every rank returns all the scores.
-        The mesh shards the kernel route only.
+        A bank on a mesh scores a rank's share through ``score_share``.
         """
-        if self.mesh is not None and not use_kernel:
-            raise ValueError("a mesh shards the bank-walk kernel route only")
+        if self.mesh is not None:
+            raise ValueError("a bank on a mesh scores through score_share")
         with observe.span("phymm.score", reads=len(seqs)):
             return self._score(seqs, batch, use_kernel, progress)
 
@@ -130,19 +128,6 @@ class PhymmBank:
         length = max(3, length + (-length) % 3)  # the kernel needs L % 3 == 0
         for lo in range(0, n, batch):
             chunk = seqs[lo : lo + batch]
-            if self.mesh is not None:
-                reads, lengths = pclassify.pad_reads(chunk, length=length)
-                reads, lengths, _n = pmesh.pad_batch(self.mesh, reads,
-                                                     lengths)
-                scores, _ = pclassify.classify_step_kernel_sharded(
-                    self.mesh, *self.tables,
-                    *pmesh.shard_reads(self.mesh, reads, lengths,
-                                       self.device),
-                    self.model_len, self.depth)
-                out[lo : lo + len(chunk)] = scores[: len(chunk), :m]
-                if progress is not None:
-                    progress.advance(len(chunk))
-                continue
             with observe.span("phymm.score.pad", reads=len(chunk)):
                 reads, lengths = pclassify.pad_reads(chunk, length=length)
                 reads = torch.from_numpy(reads).to(self.device)
@@ -165,6 +150,73 @@ class PhymmBank:
                     progress.advance(len(chunk))
         return out
 
+    def score_share(self, codes, offsets, batch: int = 512, progress=None):
+        """(reads, models of this rank's slice) bank-walk scores of the
+        reads ``codes[offsets[i]:offsets[i + 1]]`` (base indices, as
+        ``io.fasta_share.read_share`` gives them), a float32 tensor on the
+        bank's device; pad models are kept. ``batch`` reads a launch,
+        padded to the longest read rounded up to a multiple of 3; no
+        download. Spans ``phymm.score`` and, a batch, ``phymm.score.pad``
+        (the uploads, two blocking copies added to ``k2_host_syncs``, and
+        the padding on the device) and ``phymm.progress``."""
+        n = len(offsets) - 1
+        lengths = np.diff(offsets).astype(np.int32)
+        length = int(lengths.max()) if n else 0
+        length = max(3, length + (-length) % 3)
+        out = torch.empty((n, self.tables[0].shape[0]), dtype=torch.float32,
+                          device=self.device)
+        with observe.span("phymm.score", reads=n):
+            for lo in range(0, n, batch):
+                hi = min(lo + batch, n)
+                with observe.span("phymm.score.pad", reads=hi - lo):
+                    reads, lens = self._padded(codes[offsets[lo]:offsets[hi]],
+                                               lengths[lo:hi], length)
+                out[lo:hi], _ = pclassify.classify_step_kernel(
+                    *self.tables, reads, lens, self.model_len, self.depth)
+                observe.count("k2_host_syncs", 2)
+                if progress is not None:
+                    with observe.span("phymm.progress"):
+                        progress.advance(hi - lo)
+        return out
+
+    def _padded(self, codes, lengths, length):
+        """The (B, ``length``) int32 batch of the reads ``codes`` (int8,
+        end to end) of ``lengths`` (int32), zero-padded, and the lengths,
+        on the bank's device: the bases and lengths uploaded, then
+        scattered to their rows there without a sync."""
+        dev = self.device
+        bases = torch.from_numpy(codes).to(dev).to(torch.int32)
+        lens = torch.from_numpy(lengths).to(dev)
+        rep = lens.long()
+        # base j of read r goes to r * length + j: a read's shift is its
+        # row's start less its first base's place in ``codes``
+        shift = (torch.arange(len(lengths), device=dev) * length
+                 - (torch.cumsum(rep, 0) - rep))
+        at = torch.arange(len(codes), device=dev) + torch.repeat_interleave(
+            shift, rep, output_size=len(codes))
+        reads = torch.zeros((len(lengths), length), dtype=torch.int32,
+                            device=dev)
+        reads.view(-1).scatter_(0, at, bases)
+        return reads, lens
+
+
+# the raw matrix's fixed lines: before the ICM list, between it and the
+# read ids, between them and the data rows, after the rows
+_RAW_HEAD = ("BEGIN_ICM_LIST\n", "END_ICM_LIST\nBEGIN_READID_LIST\n",
+             "END_READID_LIST\nBEGIN_DATA_MATRIX\n", "END_DATA_MATRIX\n")
+_TABLE_HEAD = ("QUERY_ID\tBEST_MATCH\tSCORE\tGENUS\tFAMILY\tORDER\tCLASS\t"
+               "PHYLUM\n")
+
+
+def _rows_text(t):
+    """The DATA rows of the (reads, models) matrix ``t`` (a tensor):
+    through ``raw_text_cuda.rows_text`` on the card for float32 when CUDA
+    is available (a CPU tensor is uploaded first), else its plain loop."""
+    if (t.dtype == torch.float32 and t.device.type == "cpu"
+            and torch.cuda.is_available()):
+        t = t.to("cuda")
+    return raw_text_cuda.rows_text(t.contiguous())
+
 
 def write_raw_phymm_output(path, icm_paths, read_ids, scores) -> None:
     """scoreReadsGlim.pl raw matrix: one DATA row per ICM across reads.
@@ -181,19 +233,14 @@ def write_raw_phymm_output(path, icm_paths, read_ids, scores) -> None:
     with observe.span("phymm.raw_matrix", rows=len(icm_paths),
                       reads=len(read_ids)) as sp, open(path, "w") as fh:
         with sp.part("text"):
-            t = torch.from_numpy(np.ascontiguousarray(scores))
-            if t.dtype == torch.float32 and torch.cuda.is_available():
-                t = t.to("cuda")
-            body = raw_text_cuda.rows_text(t)
+            body = _rows_text(torch.from_numpy(np.ascontiguousarray(scores)))
         with sp.part("io"):
-            fh.write("".join(["BEGIN_ICM_LIST\n"]
-                             + [p + "\n" for p in icm_paths]
-                             + ["END_ICM_LIST\nBEGIN_READID_LIST\n"]
-                             + [r + "\n" for r in read_ids]
-                             + ["END_READID_LIST\nBEGIN_DATA_MATRIX\n"]))
+            fh.write("".join([_RAW_HEAD[0]] + [p + "\n" for p in icm_paths]
+                             + [_RAW_HEAD[1]] + [r + "\n" for r in read_ids]
+                             + [_RAW_HEAD[2]]))
             fh.flush()
             fh.buffer.write(body)
-            fh.write("END_DATA_MATRIX\n")
+            fh.write(_RAW_HEAD[3])
             if observe.enabled():
                 observe.count("raw_matrix_bytes", fh.tell())
             fh.close()
@@ -282,38 +329,62 @@ def write_results_table(path, read_ids, icm_paths, scores, taxonomy=None) -> Non
     with observe.span("phymm.results_table", reads=len(read_ids)) as sp, \
             open(path, "w") as fh:
         with sp.part("text"):
-            best = np.argmax(scores, axis=1)
-            lines = ["QUERY_ID\tBEST_MATCH\tSCORE\tGENUS\tFAMILY\tORDER\t"
-                     "CLASS\tPHYLUM\n"]
-            for i, rid in enumerate(read_ids):
-                genome = path_to_genome(icm_paths[best[i]])
-                strain = genome.split("|")[0]
-                ranks = (taxonomy or {}).get(strain, ("", "", "", "", ""))
-                lines.append("%s\t%s\t%.4f\t%s\n"
-                             % (rid, strain, scores[i, best[i]],
-                                "\t".join(ranks)))
+            lines = [_TABLE_HEAD] + _table_lines(read_ids, icm_paths, scores,
+                                                 taxonomy)
         with sp.part("io"):
             fh.writelines(lines)
             fh.close()
 
 
+def _table_lines(read_ids, icm_paths, scores, taxonomy):
+    """The results table's line of each read (its row of ``scores``)."""
+    best = np.argmax(scores, axis=1)
+    lines = []
+    for i, rid in enumerate(read_ids):
+        genome = path_to_genome(icm_paths[best[i]])
+        strain = genome.split("|")[0]
+        ranks = (taxonomy or {}).get(strain, ("", "", "", "", ""))
+        lines.append("%s\t%s\t%.4f\t%s\n"
+                     % (rid, strain, scores[i, best[i]], "\t".join(ranks)))
+    return lines
+
+
 def classify_file(sequence_file, icm_dir, out_dir=".", *, device,
-                  taxonomy=None, batch: int = 512, mesh=None):
+                  taxonomy=None, batch: int = 512, mesh=None, bank=None):
     """Full classification step on ``device``: score + write the raw
     matrix + the results table. Returns (icm_paths, read_ids, scores).
 
-    ``mesh`` shards the bank and the reads over a (data, model) mesh of
-    ranks. Every rank returns the whole score matrix; only the output
-    process (rank 0) writes the progress file, the raw matrix and the
-    results table."""
+    ``bank`` is a ``PhymmBank`` of ``icm_dir`` built before, on ``mesh``
+    when one is given; without it the bank is built here.
+
+    ``mesh`` splits the reads over its data axis and the bank over its
+    model axis. Each rank reads its share of the file
+    (``io.fasta_share``: a contiguous byte range cut at record starts),
+    encodes it and walks it ``batch`` of its own reads a launch, and the
+    score blocks are gathered once (``parallel.mesh.gather_blocks``).
+    Every rank returns the whole score matrix and every read id, in the
+    file's order, once both files are whole. With more than one rank on
+    the data axis and every rank on this host (``parallel.mesh.one_host``)
+    the ranks at model coordinate 0 each render their share of the files
+    (their block of the raw matrix's ICM rows, their reads' ids and table
+    lines) and write it at its offset, so every rank must be given the
+    same ``out_dir``; otherwise rank 0 writes both files. Rank 0 writes the
+    progress file, which counts its own reads until the gather, then the
+    file's. The files are byte for byte the one-rank run's."""
+    if taxonomy is None:
+        taxonomy = load_taxonomy(icm_dir)
+    if bank is None:
+        bank = PhymmBank.from_genome_data(icm_dir, device, mesh)
+    elif bank.mesh is not mesh:
+        raise ValueError("the bank was built on another mesh")
+    if mesh is not None:
+        return _classify_over_mesh(sequence_file, out_dir, bank, taxonomy,
+                                   batch)
     from ..io.fasta import read_fasta
     from ..utils.observe import ProgressLog, vlog
 
     recs = list(read_fasta(sequence_file))
     read_ids = [h.split()[0] for h, _ in recs]
-    if taxonomy is None:
-        taxonomy = load_taxonomy(icm_dir)
-    bank = PhymmBank.from_genome_data(icm_dir, device, mesh)
     vlog(1, f"[phymm] {len(bank.paths)} ICMs x {len(recs)} reads")
     base = os.path.basename(sequence_file).replace(".", "_")
     writer = pmesh.is_output_process()
@@ -333,3 +404,122 @@ def classify_file(sequence_file, icm_dir, out_dir=".", *, device,
             read_ids, bank.paths, scores, taxonomy,
         )
     return bank.paths, read_ids, scores
+
+
+def _classify_over_mesh(sequence_file, out_dir, bank, taxonomy, batch):
+    """classify_file over the bank's mesh. Spans ``phymm.parse`` (the
+    rank's share read, its ids and codes), ``mesh.offsets`` (the shares'
+    sizes), ``mesh.gather`` (the ids and the scores), ``phymm.score.fetch``
+    (the whole matrix's download) and ``mesh.barrier`` besides the
+    scoring's and the writers'."""
+    from ..io import fasta_share
+    from ..utils.observe import ProgressLog, vlog
+
+    mesh = bank.mesh
+    data, model = mesh.shape
+    me = mesh.get_local_rank("data")
+    enc = locale.getpreferredencoding(False)
+    with observe.span("phymm.parse") as sp:
+        ids, codes, offsets = fasta_share.read_share(sequence_file, me, data)
+        id_text = "".join(r + "\n" for r in ids).encode(enc)
+        sp.set(reads=len(ids))
+    every = pmesh.exchange([len(ids), len(id_text)])  # a row a rank
+    sizes = every[::model]  # a row a data coordinate
+    total = int(sizes[:, 0].sum())
+    vlog(1, f"[phymm] {len(bank.paths)} ICMs x {len(ids)} of {total} reads")
+    progress = None
+    if pmesh.is_output_process():
+        base = os.path.basename(sequence_file).replace(".", "_")
+        progress = ProgressLog(os.path.join(out_dir, f"{base}_progress.txt"),
+                               total, every=50)
+    block = bank.score_share(codes, offsets, batch=batch, progress=progress)
+    m = len(bank.paths)
+    read_ids, scores = [], block.new_zeros((0, m))
+    if total:
+        parts = pmesh.gather_bytes(id_text, every[:, 1])[::model]
+        read_ids = b"".join(parts).decode(enc).split("\n")[:-1]
+        scores = pmesh.gather_blocks(mesh, block, sizes[:, 0])[:, :m] \
+            .contiguous()
+    with observe.span("phymm.score.fetch"):
+        host = scores.cpu().numpy()
+    if progress is not None and total > progress.done:
+        with observe.span("phymm.progress"):
+            progress.advance(total - progress.done)
+    raw = os.path.join(out_dir, raw_phymm_name(sequence_file))
+    table = os.path.join(out_dir, results_name(sequence_file))
+    if data > 1 and pmesh.one_host():
+        first = int(sizes[:me, 0].sum())
+        _write_shares(raw, table, bank.paths, taxonomy, mesh, sizes, id_text,
+                      ids, scores, host[first:first + len(ids)], enc)
+    elif pmesh.is_output_process():
+        write_raw_phymm_output(raw, bank.paths, read_ids, host)
+        write_results_table(table, read_ids, bank.paths, host, taxonomy)
+    pmesh.barrier()
+    return bank.paths, read_ids, host
+
+
+def _write_shares(raw, table, icm_paths, taxonomy, mesh, sizes, id_text,
+                  ids, scores, mine, enc):
+    """This rank's share of the raw matrix and of the results table,
+    written at its offsets. The ranks at model coordinate 0 write: the one
+    at data coordinate i its reads' ids (``id_text``) and table lines
+    (``mine``: their rows of the scores) and the DATA rows of its block of
+    the ICMs over every read (``scores``, the whole matrix), the first of
+    them the fixed lines as well; ``sizes`` holds each data coordinate's
+    reads and id bytes. The rows' and lines' lengths are exchanged
+    (``parallel.mesh.exchange``) by every rank. Spans ``phymm.raw_matrix``
+    and ``phymm.results_table``, each with parts ``.text`` and ``.io``;
+    counter ``raw_matrix_bytes`` (the bytes this rank wrote)."""
+    data, model = mesh.shape
+    me = mesh.get_local_rank("data")
+    writer = mesh.get_local_rank("model") == 0
+    m = len(icm_paths)
+    rows = lines = b""
+    if writer:
+        lo, hi = m * me // data, m * (me + 1) // data
+        with observe.span("phymm.raw_matrix", rows=hi - lo,
+                          reads=scores.shape[0]) as sp, sp.part("text"):
+            rows = _rows_text(scores[:, lo:hi])
+        with observe.span("phymm.results_table", reads=len(ids)) as sp, \
+                sp.part("text"):
+            lines = "".join(_table_lines(ids, icm_paths, mine, taxonomy)) \
+                .encode(enc)
+    lens = pmesh.exchange([len(rows), len(lines)])[::model]
+    if not writer:
+        return
+    head = "".join([_RAW_HEAD[0]] + [p + "\n" for p in icm_paths]
+                   + [_RAW_HEAD[1]]).encode(enc)
+    mid, tail, top = (x.encode(enc) for x in (_RAW_HEAD[2], _RAW_HEAD[3],
+                                              _TABLE_HEAD))
+    at_mid = len(head) + int(sizes[:, 1].sum())
+    at_rows = at_mid + len(mid)
+    at_tail = at_rows + int(lens[:, 0].sum())
+    pieces = [(len(head) + int(sizes[:me, 1].sum()), id_text),
+              (at_rows + int(lens[:me, 0].sum()), rows)]
+    tpieces = [(len(top) + int(lens[:me, 1].sum()), lines)]
+    if me == 0:
+        pieces += [(0, head), (at_mid, mid), (at_tail, tail)]
+        tpieces.append((0, top))
+    with observe.span("phymm.raw_matrix") as sp, sp.part("io"):
+        observe.count("raw_matrix_bytes",
+                      _pwrite(raw, at_tail + len(tail), pieces))
+    with observe.span("phymm.results_table") as sp, sp.part("io"):
+        _pwrite(table, len(top) + int(lens[:, 1].sum()), tpieces)
+
+
+def _pwrite(path, size, pieces) -> int:
+    """Write each (offset, bytes) of ``pieces`` into ``path``, which is
+    created when missing and made ``size`` bytes long (other ranks write
+    the rest of it); returns the bytes written."""
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT, 0o666)
+    try:
+        os.ftruncate(fd, size)
+        done = 0
+        for off, piece in pieces:
+            view = memoryview(piece)
+            while view.nbytes:
+                k = os.pwrite(fd, view, off)
+                view, off, done = view[k:], off + k, done + k
+        return done
+    finally:
+        os.close(fd)

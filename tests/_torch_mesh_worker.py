@@ -124,13 +124,47 @@ def _pad(mesh, tag, case, out, task):
 def _classify_file(mesh, tag, case, out, task):
     from glimmer_mg_torch.parallel import phymm
 
-    rank = int(os.environ["RANK"])
-    out_dir = task["out_dir"].format(tag=tag, rank=rank)
-    os.makedirs(out_dir)
+    out_dir = task["out_dir"].format(tag=tag)
+    os.makedirs(out_dir, exist_ok=True)
     _p, _r, scores = phymm.classify_file(task["reads"], task["icm_dir"],
                                          out_dir=out_dir, device="cpu",
                                          mesh=mesh)
     out[f"classify_file_{tag}_scores"] = scores
+
+
+def _classify_shares(mesh, tag, case, out, task):
+    """classify_file on each of ``task["files"]``, without and with a bank
+    built before, every rank into one directory a run; the last file's
+    run without a bank under the recorder (its span names and counters)."""
+    from glimmer_mg_torch.parallel import phymm
+    from glimmer_mg_torch.utils import observe
+
+    bank = phymm.PhymmBank.from_genome_data(task["icm_dir"], "cpu", mesh)
+    for k, fa in enumerate(task["files"]):
+        for built in (None, bank):
+            name = f"shares_{tag}_{k}_{'bank' if built else 'nobank'}"
+            out_dir = os.path.join(task["out_dir"], name)
+            os.makedirs(out_dir, exist_ok=True)
+            probe = k == len(task["files"]) - 1 and built is None
+            if probe:
+                observe.reset()
+                observe.enable()
+            try:
+                _p, ids, scores = phymm.classify_file(
+                    fa, task["icm_dir"], out_dir=out_dir, device="cpu",
+                    mesh=mesh, bank=built)
+            finally:
+                observe.disable()
+            out[f"{name}_scores"] = scores
+            out[f"{name}_ids"] = np.array(ids, dtype=str)
+            if probe:
+                snap = observe.snapshot()
+                out[f"{name}_spans"] = np.array(
+                    sorted({sp.name for sp in snap["spans"]}), dtype=str)
+                out[f"{name}_counters"] = np.array(
+                    [snap["counters"].get(c, -1) for c in
+                     ("mesh_collectives", "mesh_bytes")])
+                observe.reset()
 
 
 def _scimm(mesh, tag, case, out, task):
@@ -160,6 +194,7 @@ def _predict(mesh, tag, case, out, task):
 
 TASKS = {"classify": _classify, "em_step": _em_step, "pad": _pad,
          "classify_file": _classify_file, "scimm": _scimm,
+         "classify_shares": _classify_shares,
          "predict": _predict}
 
 

@@ -19,7 +19,15 @@ CPU) against the port's one-rank runs and the JAX package's mesh.
 * ``classify_file(mesh=)`` on 1x2 and 2x1: the raw matrix and the results
   table byte-identical to the one-process port's and to JAX's
   ``classify_file(mesh=)`` (its TPU branch on the CPU, patched as in
-  tests/test_torch_scimm.py), written by rank 0 only;
+  tests/test_torch_scimm.py); the ranks share one host, so every rank
+  writes its share into the one output directory;
+* the read-sharded ``classify_file`` on 2x1, 4x1 and 2x2 over files of 1,
+  3, 5 and 37 reads of varied lengths (an empty one among them), with and
+  without a bank built before: both files and the progress file
+  byte-identical to the one-rank run's, and every rank returning every
+  read id and the whole matrix; on the 37-read file, the spans of the
+  mesh branch recorded and ``mesh_bytes`` equal to the bytes of the
+  gathered blocks (five collectives);
 * data-sharded device prediction on 2 ranks, on the toy setup of
   tests/test_multichip_dryrun.py::toy_predict_setup: gene records and
   overflow flags equal to the port's unsharded ``predict_batch_device``
@@ -54,6 +62,7 @@ from glimmer_mg_tpu.ops import device_predict as jdpk, icm_pallas
 from glimmer_mg_tpu.ops import icm_score as jis
 from glimmer_mg_tpu.parallel import classify as jcl, mesh as jmesh
 from glimmer_mg_tpu.parallel import phymm as jphymm
+from glimmer_mg_torch.io import fasta_share
 from glimmer_mg_torch.ops import device_predict as tdpk, icm_cuda
 from glimmer_mg_torch.parallel import classify as tcl, dryrun
 from glimmer_mg_torch.parallel import mesh as tmesh, phymm as tphymm
@@ -71,6 +80,7 @@ RANK_TIMEOUT = 150  # seconds for one launch of ranks
 LAUNCH_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
               "LOCAL_RANK")
 LENGTHS = [126, 100, 50, 9, 0, 77, 126, 31, 64]
+SHARE_READS = (1, 3, 5, 37)
 
 
 def bits(a):
@@ -135,7 +145,37 @@ def launch(work, tasks, case, n):
 
 
 @pytest.fixture(scope="module")
-def world2(tmp_path_factory, case, mg_db):
+def share_files(tmp_path_factory, mg_db):
+    """FASTA files of 1, 3, 5 and 37 reads cut to varied lengths (the
+    second read of the 37 empty), lines of 60 or 37 bases."""
+    _root, _icm_dir, reads, _truth = mg_db
+    d = tmp_path_factory.mktemp("shares")
+    rng = np.random.default_rng(21)
+    files = []
+    for n in SHARE_READS:
+        lines = []
+        for i in range(n):
+            h, s = reads[i % len(reads)]
+            s = s[:int(rng.integers(1, len(s) + 1))] if i % 3 else s
+            s = "" if (n, i) == (37, 1) else s
+            width = 60 if n % 2 else 37
+            lines.append(f">{h.split()[0]}_{i} read {i}\n")
+            lines += [s[j:j + width] + "\n" for j in range(0, len(s), width)]
+        path = d / f"reads{n}.fa"
+        path.write_text("".join(lines))
+        files.append(str(path))
+    return files
+
+
+def _shares_task(work, mg_db, share_files, meshes):
+    _root, icm_dir, _reads, _truth = mg_db
+    return {"name": "classify_shares", "meshes": meshes,
+            "files": share_files, "icm_dir": str(icm_dir),
+            "out_dir": str(work)}
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory, case, mg_db, share_files):
     """Every task on 2 ranks, launched once."""
     root, icm_dir, _reads, _truth = mg_db
     work = tmp_path_factory.mktemp("mesh2")
@@ -145,16 +185,19 @@ def world2(tmp_path_factory, case, mg_db):
         {"name": "em_step", "meshes": [[1, 2], [2, 1]]},
         {"name": "classify_file", "meshes": [[1, 2], [2, 1]],
          "reads": str(root / "reads.fa"), "icm_dir": str(icm_dir),
-         "out_dir": str(work / "cf_{tag}_rank{rank}")},
+         "out_dir": str(work / "cf_{tag}")},
         {"name": "predict", "meshes": [[2, 1]]},
+        _shares_task(work, mg_db, share_files, [[2, 1]]),
     ]
     return work, launch(work, tasks, case, 2)
 
 
 @pytest.fixture(scope="module")
-def world4(tmp_path_factory, case):
+def world4(tmp_path_factory, case, mg_db, share_files):
     work = tmp_path_factory.mktemp("mesh4")
-    return launch(work, [{"name": "classify", "meshes": [[2, 2]]}], case, 4)
+    tasks = [{"name": "classify", "meshes": [[2, 2]]},
+             _shares_task(work, mg_db, share_files, [[4, 1], [2, 2]])]
+    return work, launch(work, tasks, case, 4)
 
 
 def same_on_every_rank(ranks, prefix):
@@ -282,8 +325,7 @@ def _jax_sharded(case, data, model):
                                               (4, 2, 2)])
 def test_sharded_classification_bitwise(request, case, one_rank, world, data,
                                         model):
-    ranks = request.getfixturevalue(f"world{world}")
-    ranks = ranks[1] if world == 2 else ranks
+    _work, ranks = request.getfixturevalue(f"world{world}")
     tag = f"classify_{data}x{model}"
     got = same_on_every_rank(ranks, tag)
     n, m = len(LENGTHS), case["lm"].shape[0]
@@ -316,7 +358,8 @@ def test_sharded_em_step_bitwise(world2, case, data, model):
 
 def test_classify_file_over_a_mesh(world2, mg_db, tmp_path):
     """Raw matrix and results table byte-identical to the one-process
-    port's and to JAX's classify_file(mesh=); rank 1 wrote nothing."""
+    port's and to JAX's classify_file(mesh=); the ranks share this host,
+    so both wrote into the one directory, which holds the three files."""
     work, ranks = world2
     root, icm_dir, _reads, _truth = mg_db
     fa = str(root / "reads.fa")
@@ -330,7 +373,8 @@ def test_classify_file_over_a_mesh(world2, mg_db, tmp_path):
         got = same_on_every_rank(ranks, f"classify_file_{tag}")
         assert np.array_equal(bits(got[f"classify_file_{tag}_scores"]),
                               bits(want))
-        assert os.listdir(work / f"cf_{tag}_rank1") == []
+        assert sorted(os.listdir(work / f"cf_{tag}")) == sorted(
+            names + ("reads_fa_progress.txt",))
         jdir = tmp_path / f"jax_{tag}"
         jdir.mkdir()
         with pytest.MonkeyPatch.context() as mp:
@@ -338,9 +382,71 @@ def test_classify_file_over_a_mesh(world2, mg_db, tmp_path):
             jphymm.classify_file(fa, str(icm_dir), out_dir=str(jdir),
                                  mesh=jax_mesh(data, model))
         for name in names:
-            mine = (work / f"cf_{tag}_rank0" / name).read_bytes()
+            mine = (work / f"cf_{tag}" / name).read_bytes()
             assert mine == (single / name).read_bytes(), (tag, name)
             assert mine == (jdir / name).read_bytes(), (tag, name)
+
+
+@pytest.fixture(scope="module")
+def share_singles(tmp_path_factory, mg_db, share_files):
+    """The one-rank classify_file of each share file: (ids, scores, {file
+    name: bytes})."""
+    _root, icm_dir, _reads, _truth = mg_db
+    out = []
+    for fa in share_files:
+        d = tmp_path_factory.mktemp("single")
+        _p, ids, scores = tphymm.classify_file(fa, str(icm_dir),
+                                               out_dir=str(d), device="cpu")
+        out.append((ids, scores, {p.name: p.read_bytes()
+                                  for p in d.iterdir()}))
+    return out
+
+
+@pytest.mark.parametrize("world,data,model", [(2, 2, 1), (4, 4, 1),
+                                              (4, 2, 2)])
+def test_read_sharded_classify_file_byte_identical(request, share_files,
+                                                   share_singles, world,
+                                                   data, model):
+    work, ranks = request.getfixturevalue(f"world{world}")
+    for k, (ids, want, files) in enumerate(share_singles):
+        assert len(ids) == SHARE_READS[k] and files
+        for variant in ("nobank", "bank"):
+            name = f"shares_{data}x{model}_{k}_{variant}"
+            d = work / name
+            assert {p.name: p.read_bytes() for p in d.iterdir()} == files, \
+                name
+            for r in ranks:  # every rank returns every id and score
+                assert list(r[f"{name}_ids"]) == ids, name
+                assert np.array_equal(bits(r[f"{name}_scores"]),
+                                      bits(want)), name
+
+
+@pytest.mark.parametrize("world,data,model", [(2, 2, 1), (4, 4, 1),
+                                              (4, 2, 2)])
+def test_read_sharded_classify_file_spans_and_bytes(request, share_files,
+                                                    mg_db, world, data,
+                                                    model):
+    """On the 37-read file (the probe of each mesh): the mesh branch's
+    spans, five collectives a rank, and mesh_bytes = 2 (n - 1) x each
+    gather's per-rank bytes: the reads and id bytes (2 int64), the ids
+    (the longest share's), the scores (the most reads x this rank's
+    models x 4), the text lengths (2 int64)."""
+    _work, ranks = request.getfixturevalue(f"world{world}")
+    _root, icm_dir, _reads, _truth = mg_db
+    name = f"shares_{data}x{model}_{len(share_files) - 1}_nobank"
+    shares = [fasta_share.read_share(share_files[-1], i, data)
+              for i in range(data)]
+    id_bytes = max(len("".join(r + "\n" for r in ids).encode())
+                   for ids, _c, _o in shares)
+    rows = max(len(ids) for ids, _c, _o in shares)
+    models = len(tphymm.genome_icm_paths(str(icm_dir)))
+    local = -(-models // model)
+    want = 2 * (world - 1) * (16 + id_bytes + rows * local * 4 + 16)
+    for r in ranks:
+        assert {"phymm.parse", "phymm.score", "phymm.score.pad",
+                "phymm.score.fetch", "mesh.offsets", "mesh.gather",
+                "mesh.barrier"} <= set(r[f"{name}_spans"])
+        assert list(r[f"{name}_counters"]) == [5, want]
 
 
 # ---- data-sharded prediction ----------------------------------------------

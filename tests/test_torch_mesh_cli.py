@@ -4,6 +4,9 @@
   processes (the counterpart of tests/test_multihost.py:53): the raw
   matrix and the results table byte-identical to a one-process run,
   written by process 0 only;
+* ``classify --mesh 4,1`` on 4 ranks under a launcher's environment: the
+  ranks' shares of both files in one directory, byte-identical to a
+  one-process run;
 * ``glimmer-mg-pipeline --mesh 2,1 --iterate 1`` on 2 ranks under a
   launcher's environment, on the 2-genome fixture database of
   tests/_torch_common.py: every file of the work directory byte-identical
@@ -60,6 +63,25 @@ def test_classify_on_two_processes(mg_db, tmp_path):
                          "reads_fa_progress.txt"}
     assert _files(tmp_path / "proc0") == want
     assert _files(tmp_path / "proc1") == {}
+
+
+def test_classify_read_sharded_under_a_launcher(mg_db, tmp_path):
+    """``classify --mesh 4,1`` on 4 ranks under a launcher's environment
+    (one host): each rank writes its share into the one directory; both
+    files and the progress file byte-identical to a one-process run."""
+    root, icm_dir, _reads, _truth = mg_db
+    fa = str(root / "reads.fa")
+    for d in ("mesh", "single"):
+        (tmp_path / d).mkdir()
+    run_local(CLI + ["classify", fa, str(icm_dir), "-o",
+                     str(tmp_path / "mesh"), "--mesh", "4,1", "--batch", "7",
+                     "--device", "cpu"],
+              4, timeout=RANK_TIMEOUT, env=_rank_env(), cwd=REPO)
+    assert tcli.main(["classify", fa, str(icm_dir), "-o",
+                      str(tmp_path / "single"), "--device", "cpu"]) == 0
+    want = _files(tmp_path / "single")
+    assert len(want) == 3
+    assert _files(tmp_path / "mesh") == want
 
 
 def test_pipeline_mesh_matches_one_process(mg_db, tmp_path):
