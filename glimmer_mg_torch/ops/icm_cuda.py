@@ -12,7 +12,9 @@
     ``ops.icm_score.bank_score_reads_packed``.
     ``bank_score_both_strands`` runs the same kernel on a read batch and
     its reverse complements in one launch and returns the per-(read,
-    model) max, the scores of ``classify_step_pallas``.
+    model) max, the scores of ``classify_step_pallas``. Both check the
+    bases and lengths they are given (one host sync), except inside
+    ``values_in_range``, whose callers made them in range by construction.
 
 CUDA tensors go to the kernel (or the wrapper raises); CPU tensors go to
 the plain PyTorch twin, which the kernel matches bitwise. There is no
@@ -20,6 +22,9 @@ fallback from one to the other.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -43,6 +48,10 @@ MAX_SIX_FRAME_DEPTH = 7
 launches = 0
 bank_walk_launches = 0
 bank_walk_int8_launches = 0
+
+
+# the bank walk's value check, skipped on this thread inside values_in_range
+_vouched = threading.local()
 
 
 def reset_launches() -> None:
@@ -325,14 +334,47 @@ def _launch_six_frame(gene_mip, gene_probs_f, indep_mip, indep_probs_f,
     return gene, ind
 
 
+@contextlib.contextmanager
+def values_in_range():
+    """A scope, on this thread, whose bank-walk calls take every base in
+    [0, 3] and every length in [0, L] as given: their callers made them so
+    by construction (``parallel.phymm.PhymmBank``'s codes all come from
+    ``dna.SUBSCRIPT_TABLE``). Inside it ``_check_bank_walk`` checks shapes
+    only and makes no host sync; counter ``k2_checked_by_construction``,
+    a call. Leaving the scope, by an exception too, restores the check."""
+    outer = getattr(_vouched, "on", False)
+    _vouched.on = True
+    try:
+        yield
+    finally:
+        _vouched.on = outer
+
+
 def _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth,
                      int8):
     """Shapes and index ranges the bank-walk kernel trusts: a walk of
     ``depth`` (<= 7, the deepest whose tables fit a block's shared memory)
     levels reads only the level rows and prob rows the tables hold,
     lengths lie in [0, L], bases in [0, 3], the context fits 30 bits and
-    an int32 sum of int16 values cannot overflow. One host sync for the
-    value checks (span ``k2.check``, counter ``k2_host_syncs``)."""
+    an int32 sum of int16 values cannot overflow. Span ``k2.check``. One
+    host sync for the value checks (counter ``k2_host_syncs``), none
+    inside ``values_in_range``."""
+    with observe.span("k2.check"):
+        _check_bank_shapes(level_mip, probs_pk, reads, lengths, model_len,
+                           depth, int8)
+        if getattr(_vouched, "on", False):
+            observe.count("k2_checked_by_construction")
+            return
+        bad = bool(((lengths < 0) | (lengths > reads.shape[1])).any()
+                   | ((reads < 0) | (reads > 3)).any())
+    observe.count("k2_host_syncs")
+    if bad:
+        raise ValueError("lengths must lie in [0, L] and bases in [0, 3]")
+
+
+def _check_bank_shapes(level_mip, probs_pk, reads, lengths, model_len, depth,
+                       int8):
+    """``_check_bank_walk``'s checks of shapes and sizes: no host sync."""
     if level_mip.dim() != 4 or probs_pk.dim() != 4:
         raise ValueError("level_mip and probs_pk must be 4-D")
     m, p, lr, lanes = level_mip.shape
@@ -359,12 +401,6 @@ def _check_bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth,
     if probs_pk.shape[2] < need:
         raise ValueError(f"probs_pk has {probs_pk.shape[2]} rows, too few "
                          f"for depth {depth}")
-    with observe.span("k2.check"):
-        bad = bool(((lengths < 0) | (lengths > reads.shape[1])).any()
-                   | ((reads < 0) | (reads > 3)).any())
-    observe.count("k2_host_syncs")
-    if bad:
-        raise ValueError("lengths must lie in [0, L] and bases in [0, 3]")
 
 
 def _bank_walk(level_mip, probs_pk, reads, lengths, model_len, depth, int8,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..engine.glimmer_mg import _check_device
+from ..models import dna
 from ..models import icm as icm_mod
 from ..ops import icm_cuda, icm_score, raw_text_cuda
 from ..utils import observe
@@ -37,6 +38,16 @@ from . import mesh as pmesh
 # models packed per pack_tables call: the packing's int64/f32 temporaries
 # of a whole 512-model bank come to a few GB of host memory
 PACK_CHUNK = 16
+# reads a slab, rounded down to whole batches (at least one): score_reads
+# and score_share encode, upload and pad a slab at once, then launch its
+# batches back to back; score_reads downloads it once. Device and pinned
+# host memory follow the slab, not the number of reads.
+SLAB_READS = 8192
+
+# K2's value check is skipped on the slabs (icm_cuda.values_in_range): every
+# base index they hold comes from this table (io.fasta_share's too)
+if not 0 <= dna.SUBSCRIPT_TABLE.min() <= dna.SUBSCRIPT_TABLE.max() <= 3:
+    raise AssertionError("dna.SUBSCRIPT_TABLE must map every byte to 0..3")
 
 
 def genome_icm_paths(icm_dir: str) -> list[str]:
@@ -85,6 +96,8 @@ class PhymmBank:
                           bytes=sum(t.nbytes for t in host)):
             self.tables = tuple(torch.from_numpy(t).to(self.device)
                                 for t in host)
+        self._subscript = torch.from_numpy(
+            dna.SUBSCRIPT_TABLE.astype(np.int32)).to(self.device)
         self._exact = None
 
     @classmethod
@@ -103,11 +116,13 @@ class PhymmBank:
         """(n_reads, n_models) fwd/rev-max scores, numpy f32.
 
         Reads are padded per call to the longest read, rounded up to a
-        multiple of 3. ``use_kernel`` scores with the 16-bit bank walk
-        (the CUDA kernel on a CUDA device, its twin on the CPU), else with
-        the exact f32 walk. ``progress`` is an optional
-        utils.observe.ProgressLog advanced once per read (the reference's
-        *_progress.txt, scoreReadsGlim.pl:417).
+        multiple of 3, and walked ``batch`` a launch. ``use_kernel`` scores
+        with the 16-bit bank walk (the CUDA kernel on a CUDA device, its
+        twin on the CPU), else with the exact f32 walk. ``progress`` is an
+        optional utils.observe.ProgressLog advanced as reads are scored
+        (the reference's *_progress.txt, scoreReadsGlim.pl:417). A read
+        that is not latin-1 text raises UnicodeEncodeError, as
+        ``dna.encode`` does.
 
         A bank on a mesh scores a rank's share through ``score_share``.
         """
@@ -117,38 +132,67 @@ class PhymmBank:
             return self._score(seqs, batch, use_kernel, progress)
 
     def _score(self, seqs, batch, use_kernel, progress):
-        """score_reads' batches: spans ``phymm.score.pad`` (the encoding
-        and the upload), ``.fetch`` (the blocking download) and
-        ``phymm.progress``. A bank-walk batch adds its three blocking
-        copies to ``k2_host_syncs``; K2's range check adds the fourth."""
-        m = len(self.paths)
+        """score_reads by slabs of ``_slab_reads(batch)`` reads: spans
+        ``phymm.score.pad`` (a slab's encoding, upload and padding),
+        ``.fetch`` (its download, the slab's one host wait, counted in
+        ``k2_host_syncs`` for the bank walk) and ``phymm.progress``. The
+        next slab is encoded while the device walks this one."""
         n = len(seqs)
-        out = np.zeros((n, m), dtype=np.float32)
-        length = max((len(s) for s in seqs), default=0)
+        out = np.zeros((n, len(self.paths)), dtype=np.float32)
+        if not n:
+            return out
+        length = max(len(s) for s in seqs)
         length = max(3, length + (-length) % 3)  # the kernel needs L % 3 == 0
-        for lo in range(0, n, batch):
-            chunk = seqs[lo : lo + batch]
-            with observe.span("phymm.score.pad", reads=len(chunk)):
-                reads, lengths = pclassify.pad_reads(chunk, length=length)
-                reads = torch.from_numpy(reads).to(self.device)
-                lengths = torch.from_numpy(lengths).to(self.device)
-            if use_kernel:
-                scores, _ = pclassify.classify_step_kernel(
-                    *self.tables, reads, lengths, self.model_len, self.depth)
-            else:
-                scores, _ = pclassify.classify_step(
-                    *self.exact_tables(), reads, lengths, self.model_len,
-                    self.depth)
+        per = _slab_reads(batch)
+        slab = self._encode(seqs[:per], length)
+        for lo in range(0, n, per):
+            hi = min(lo + per, n)
+            block = torch.empty((hi - lo, out.shape[1]), dtype=torch.float32,
+                                device=self.device)
+            self._walk(*slab, batch, use_kernel, block)
+            if hi < n:
+                slab = self._encode(seqs[hi:hi + per], length)
             with observe.span("phymm.score.fetch"):
-                out[lo : lo + len(chunk)] = scores.cpu().numpy()
+                # into pageable memory: the copy waits for the stream
+                torch.from_numpy(out[lo:hi]).copy_(block)
             if use_kernel:
-                # a copy from pageable memory waits for the stream: the two
-                # uploads and the fetch
-                observe.count("k2_host_syncs", 3)
+                observe.count("k2_host_syncs")
             if progress is not None:
                 with observe.span("phymm.progress"):
-                    progress.advance(len(chunk))
+                    progress.advance(hi - lo)
         return out
+
+    def _encode(self, seqs, length):
+        """The slab ``seqs`` (str) as (reads (R, ``length``) int32, lengths
+        (R,) int32) on the bank's device: the strings joined and encoded as
+        latin-1 (as ``dna.encode`` does), uploaded with their lengths in
+        one copy, then each byte looked up in ``dna.SUBSCRIPT_TABLE`` and
+        scattered to its row there."""
+        with observe.span("phymm.score.pad", reads=len(seqs)):
+            raw = np.frombuffer("".join(seqs).encode("latin-1"), np.uint8)
+            lens, codes = self._upload(
+                np.fromiter(map(len, seqs), np.int32, len(seqs)), raw)
+            bases = self._subscript.index_select(0, codes.int())
+            return self._padded(bases, lens, length), lens
+
+    def _walk(self, reads, lens, batch, use_kernel, into):
+        """Fill ``into`` (a slab's rows of scores on the device) from the
+        padded slab ``reads``, ``lens``, ``batch`` reads a launch, back to
+        back with no host wait: K2 through ``pclassify.classify_step_kernel``
+        inside ``icm_cuda.values_in_range`` (every base came from
+        ``dna.SUBSCRIPT_TABLE``, no length passes the slab's width), else
+        the exact f32 walk."""
+        with icm_cuda.values_in_range():
+            for lo in range(0, len(lens), batch):
+                hi = lo + batch
+                if use_kernel:
+                    into[lo:hi], _ = pclassify.classify_step_kernel(
+                        *self.tables, reads[lo:hi], lens[lo:hi],
+                        self.model_len, self.depth)
+                else:
+                    into[lo:hi], _ = pclassify.classify_step(
+                        *self.exact_tables(), reads[lo:hi], lens[lo:hi],
+                        self.model_len, self.depth)
 
     def score_share(self, codes, offsets, batch: int = 512, progress=None):
         """(reads, models of this rank's slice) bank-walk scores of the
@@ -156,48 +200,66 @@ class PhymmBank:
         ``io.fasta_share.read_share`` gives them), a float32 tensor on the
         bank's device; pad models are kept. ``batch`` reads a launch,
         padded to the longest read rounded up to a multiple of 3; no
-        download. Spans ``phymm.score`` and, a batch, ``phymm.score.pad``
-        (the uploads, two blocking copies added to ``k2_host_syncs``, and
-        the padding on the device) and ``phymm.progress``."""
+        download and no host wait. Spans ``phymm.score`` and, a slab of
+        ``_slab_reads(batch)`` reads, ``phymm.score.pad`` (its upload and
+        its padding on the device) and ``phymm.progress``."""
         n = len(offsets) - 1
         lengths = np.diff(offsets).astype(np.int32)
         length = int(lengths.max()) if n else 0
         length = max(3, length + (-length) % 3)
         out = torch.empty((n, self.tables[0].shape[0]), dtype=torch.float32,
                           device=self.device)
+        per = _slab_reads(batch)
         with observe.span("phymm.score", reads=n):
-            for lo in range(0, n, batch):
-                hi = min(lo + batch, n)
+            for lo in range(0, n, per):
+                hi = min(lo + per, n)
                 with observe.span("phymm.score.pad", reads=hi - lo):
-                    reads, lens = self._padded(codes[offsets[lo]:offsets[hi]],
-                                               lengths[lo:hi], length)
-                out[lo:hi], _ = pclassify.classify_step_kernel(
-                    *self.tables, reads, lens, self.model_len, self.depth)
-                observe.count("k2_host_syncs", 2)
+                    lens, bases = self._upload(
+                        lengths[lo:hi],
+                        codes[offsets[lo]:offsets[hi]].view(np.uint8))
+                    reads = self._padded(bases.to(torch.int32), lens, length)
+                self._walk(reads, lens, batch, True, out[lo:hi])
                 if progress is not None:
                     with observe.span("phymm.progress"):
                         progress.advance(hi - lo)
         return out
 
-    def _padded(self, codes, lengths, length):
-        """The (B, ``length``) int32 batch of the reads ``codes`` (int8,
-        end to end) of ``lengths`` (int32), zero-padded, and the lengths,
-        on the bank's device: the bases and lengths uploaded, then
-        scattered to their rows there without a sync."""
-        dev = self.device
-        bases = torch.from_numpy(codes).to(dev).to(torch.int32)
-        lens = torch.from_numpy(lengths).to(dev)
+    def _upload(self, lengths, codes):
+        """``lengths`` (int32) and ``codes`` (a byte a base) on the bank's
+        device in one copy, without a host wait: through pinned memory on a
+        CUDA device (the caching host allocator keeps the buffer until the
+        copy is done); on the CPU, views of the host buffer itself."""
+        r = 4 * len(lengths)
+        host = torch.empty(r + len(codes), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        buf[:r] = lengths.view(np.uint8)
+        buf[r:] = codes
+        dev = host.to(self.device, non_blocking=True)
+        return dev[:r].view(torch.int32), dev[r:]
+
+    def _padded(self, bases, lens, length):
+        """The (R, ``length``) int32 batch of the reads ``bases`` (int32, end
+        to end) of ``lens`` (int32), zero-padded, on their device: each base
+        scattered to its row without a sync."""
+        dev = bases.device
         rep = lens.long()
         # base j of read r goes to r * length + j: a read's shift is its
-        # row's start less its first base's place in ``codes``
-        shift = (torch.arange(len(lengths), device=dev) * length
+        # row's start less its first base's place in ``bases``
+        shift = (torch.arange(len(lens), device=dev) * length
                  - (torch.cumsum(rep, 0) - rep))
-        at = torch.arange(len(codes), device=dev) + torch.repeat_interleave(
-            shift, rep, output_size=len(codes))
-        reads = torch.zeros((len(lengths), length), dtype=torch.int32,
+        at = torch.arange(len(bases), device=dev) + torch.repeat_interleave(
+            shift, rep, output_size=len(bases))
+        reads = torch.zeros((len(lens), length), dtype=torch.int32,
                             device=dev)
         reads.view(-1).scatter_(0, at, bases)
-        return reads, lens
+        return reads
+
+
+def _slab_reads(batch: int) -> int:
+    """Reads a slab: ``SLAB_READS`` rounded down to whole batches of
+    ``batch``, at least one batch."""
+    return batch * max(1, SLAB_READS // batch)
 
 
 # the raw matrix's fixed lines: before the ICM list, between it and the

@@ -109,6 +109,59 @@ def _gene_like(rng, ncod, gc):
     return "atg" + "".join(cs) + str(rng.choice(["taa", "tag", "tga"]))
 
 
+# every byte class the encoder meets: IUPAC codes, n, gaps, digits, a
+# latin-1 letter past ASCII
+ODD = "rysWMKbdhvNn*-.x9\xe9 "
+
+
+def mixed_reads(seed, n, longest=150):
+    """``n`` reads of at most ``longest`` bases: lower-, upper- and
+    mixed-case genes, some with IUPAC codes and bytes outside the alphabet,
+    and an empty one."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n):
+        s = _gene_like(rng, int(rng.integers(1, (longest - 6) // 3 + 1)), 0.5)
+        kind = i % 4
+        if kind == 1:
+            s = s.upper()
+        elif kind == 2:
+            s = "".join(c.upper() if rng.random() < 0.5 else c for c in s)
+        elif kind == 3:
+            at = rng.integers(0, len(s), 4)
+            s = "".join(ODD[rng.integers(len(ODD))] if j in at else c
+                        for j, c in enumerate(s))
+        reads.append(s)
+    if n > 2:
+        reads[n // 2] = ""
+    return reads
+
+
+def former_score_reads(bank, seqs, batch, use_kernel=True):
+    """``PhymmBank.score_reads`` as it was before slabs: ``pad_reads`` a
+    batch, its upload, then the walk through the module's step."""
+    import torch
+
+    from glimmer_mg_torch.parallel import classify
+
+    out = np.zeros((len(seqs), len(bank.paths)), dtype=np.float32)
+    length = max((len(s) for s in seqs), default=0)
+    length = max(3, length + (-length) % 3)
+    for lo in range(0, len(seqs), batch):
+        chunk = seqs[lo:lo + batch]
+        reads, lengths = (torch.from_numpy(a).to(bank.device) for a in
+                          classify.pad_reads(chunk, length=length))
+        if use_kernel:
+            scores, _ = classify.classify_step_kernel(
+                *bank.tables, reads, lengths, bank.model_len, bank.depth)
+        else:
+            scores, _ = classify.classify_step(
+                *bank.exact_tables(), reads, lengths, bank.model_len,
+                bank.depth)
+        out[lo:lo + len(chunk)] = scores.cpu().numpy()
+    return out
+
+
 def random_reads(seed, count, lo=30, hi=700):
     """Random reads of varied length and GC, degenerate tiny ones included."""
     rng = np.random.default_rng(seed)

@@ -18,7 +18,8 @@ from glimmer_mg_torch.models import dna, icm_train
 from glimmer_mg_torch.ops import icm_cuda, icm_score
 from glimmer_mg_torch.parallel import classify
 
-from tests._torch_common import BAD, _gene_like, bad_bank_walk_call
+from tests._torch_common import (BAD, _gene_like, bad_bank_walk_call,
+                                 former_score_reads, mixed_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -155,24 +156,121 @@ def test_wrapper_rejects_out_of_range(cuda, bad):
     assert icm_cuda.bank_walk_launches == 0
 
 
+def _bank_dir(path, rng):
+    """Three genome ICMs under ``path`` (``<strain>/<nc>.icm``)."""
+    from glimmer_mg_torch.models import icm as icm_mod
+
+    for k in range(3):
+        seqs = [dna.encode(_gene_like(rng, 150, 0.35 + 0.1 * k))
+                for _ in range(8)]
+        (path / f"strain{k}").mkdir()
+        icm_mod.write_icm(icm_train.train_icm(seqs, model_len=12, depth=7),
+                          path / f"strain{k}" / f"NC_{k}.icm")
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def card_bank(cuda, tmp_path_factory):
+    from glimmer_mg_torch.parallel import phymm
+
+    root = _bank_dir(tmp_path_factory.mktemp("card_bank"),
+                     np.random.default_rng(8))
+    return phymm.PhymmBank.from_genome_data(root, cuda)
+
+
+@pytest.mark.parametrize("n,batch,slab", [(130, 16, 48), (9000, 512, None),
+                                          (7, 1, None)])
+def test_score_reads_on_card_bitwise_equals_the_per_batch_path(
+        card_bank, monkeypatch, n, batch, slab):
+    """Slabs encoded and padded on the card, their batches launched back
+    to back, against ``pad_reads`` a batch and its upload (the former
+    path), and against the CPU twin's ``score_reads``: bitwise, with
+    every launch's value check skipped by construction."""
+    from glimmer_mg_torch.parallel import phymm
+    from glimmer_mg_torch.utils import observe
+
+    if slab is not None:
+        monkeypatch.setattr(phymm, "SLAB_READS", slab)
+    seqs = mixed_reads(n, n, longest=1100)
+    observe.reset()
+    observe.enable()
+    try:
+        got = card_bank.score_reads(seqs, batch=batch)
+        counters = observe.snapshot()["counters"]
+    finally:
+        observe.disable()
+        observe.reset()
+    want = former_score_reads(card_bank, seqs, batch)
+    cpu = phymm.PhymmBank(card_bank.paths, "cpu").score_reads(seqs,
+                                                              batch=batch)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.array_equal(got.view(np.int32), cpu.view(np.int32))
+    assert counters["k2_checked_by_construction"] == -(-n // batch)
+    assert counters["k2_host_syncs"] == -(-n // phymm._slab_reads(batch))
+
+
+def test_int8_control_patch_takes_effect(card_bank, monkeypatch):
+    """The benchmark's control swaps the bank's tables for 8-bit ones and
+    ``classify_step_kernel`` for a step of the same signature that walks
+    them: ``score_reads`` then launches the 8-bit walk only, and its
+    scores are the former path's under the same patch."""
+    b = card_bank
+    lm, pk, scale = icm_cuda.pack_tables_int8(b.mip, b.probs, depth=b.depth)
+
+    def step(level_mip, probs_pk, reads, lengths, model_len=12, depth=7):
+        return classify._with_best(icm_cuda.bank_score_both_strands(
+            level_mip, probs_pk, reads, lengths, model_len, depth,
+            int8=True, scale=scale))
+
+    seqs = mixed_reads(4, 70, longest=900)
+    plain = b.score_reads(seqs, batch=16)
+    monkeypatch.setattr(b, "tables", tuple(
+        torch.from_numpy(t).to(b.device) for t in (lm, pk)))
+    monkeypatch.setattr(classify, "classify_step_kernel", step)
+    icm_cuda.reset_launches()
+    got = b.score_reads(seqs, batch=16)
+    assert icm_cuda.bank_walk_int8_launches == 5
+    assert icm_cuda.bank_walk_launches == 0
+    want = former_score_reads(b, seqs, 16)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.array_equal(got, plain)
+
+
+@pytest.mark.parametrize("bad", ["base_4", "length_past_L"])
+def test_direct_calls_check_values_after_a_scope_raised(cuda, bad):
+    """A direct call with a base of 4 or a length past L raises, also
+    right after a call that raised inside ``values_in_range``."""
+    t = [x.to(cuda) for x in _case(1, 4, 96)]
+    if bad == "base_4":
+        t[2] = t[2].clone()
+        t[2][0, 0] = 4
+    else:
+        t[3] = t[3].clone()
+        t[3][1] = t[2].shape[1] + 1
+    short = [*t[:2], t[2][:, :-1].contiguous(), t[3].clamp(max=95)]
+    icm_cuda.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 3"):
+        with icm_cuda.values_in_range():
+            icm_cuda.bank_score_both_strands(*short)
+    for fn in (icm_cuda.bank_score_both_strands,
+               icm_cuda.bank_score_reads_kernel):
+        with pytest.raises(ValueError, match="lengths must lie"):
+            fn(*t)
+    assert icm_cuda.bank_walk_launches == 0
+
+
 def test_score_reads_counts_the_syncs_cuda_reports(cuda, tmp_path):
     """``k2_host_syncs`` over ``PhymmBank.score_reads`` is the number of
-    synchronising calls that CUDA's sync debug mode reports there: each
-    batch's two uploads, K2's range check and the fetch."""
+    synchronising calls that CUDA's sync debug mode reports there: the
+    one slab's download (its upload is from pinned memory, and K2's
+    value check is skipped by construction)."""
     import warnings
 
-    from glimmer_mg_torch.models import icm as icm_mod
     from glimmer_mg_torch.parallel import phymm
     from glimmer_mg_torch.utils import observe
 
     rng = np.random.default_rng(5)
-    for k in range(3):
-        seqs = [dna.encode(_gene_like(rng, 150, 0.35 + 0.1 * k))
-                for _ in range(8)]
-        (tmp_path / f"strain{k}").mkdir()
-        icm_mod.write_icm(icm_train.train_icm(seqs, model_len=12, depth=7),
-                          tmp_path / f"strain{k}" / f"NC_{k}.icm")
-    bank = phymm.PhymmBank.from_genome_data(str(tmp_path), cuda)
+    bank = phymm.PhymmBank.from_genome_data(_bank_dir(tmp_path, rng), cuda)
     reads = [_gene_like(rng, int(rng.integers(20, 200)), 0.5)
              for _ in range(40)]
     bank.score_reads(reads, batch=16)  # builds the kernel
@@ -193,4 +291,4 @@ def test_score_reads_counts_the_syncs_cuda_reports(cuda, tmp_path):
         observe.reset()
     syncs = [w for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
-    assert counted == len(syncs) == 4 * 3
+    assert counted == len(syncs) == 1

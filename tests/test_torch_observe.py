@@ -287,11 +287,14 @@ def test_phymm_files_are_identical_on_and_off(bank, tmp_path):
 
 
 def test_bank_and_score_reads_spans_and_four_syncs_per_k2_call(
-        mg_db, one_torch_thread):
+        mg_db, one_torch_thread, monkeypatch):
     """On the CPU twin no kernel launches, so K2's calls are counted by
-    their range checks; each adds two uploads and a fetch: four host syncs
-    a call."""
+    their checks, each one ``k2.check`` whose value check the slab's scope
+    skips (``k2_checked_by_construction``). A slab of 24 reads is encoded,
+    uploaded and padded once (``phymm.score.pad``) and downloaded once, its
+    one host sync; the uploads make none."""
     root, icm_dir, reads, _truth = mg_db
+    monkeypatch.setattr(phymm, "SLAB_READS", 24)
     observe.enable()
     b = phymm.PhymmBank.from_genome_data(str(icm_dir), "cpu")
     progress = observe.ProgressLog(None, len(reads), every=50)
@@ -299,17 +302,21 @@ def test_bank_and_score_reads_spans_and_four_syncs_per_k2_call(
     rec = observe.snapshot()
     names = _names(rec)
     calls = -(-len(reads) // 8)
+    slabs = -(-len(reads) // 24)
+    assert slabs > 1
     assert names[:4] == ["phymm.bank.read", "phymm.bank.stack",
                          "phymm.bank.pack", "phymm.bank.upload"]
     by = {s.name: s for s in rec["spans"]}
     assert by["phymm.bank.read"].attrs == {"icms": len(b.paths)}
     assert by["phymm.bank.upload"].attrs == {
         "bytes": sum(t.numel() * t.element_size() for t in b.tables)}
-    for name in ("phymm.score.pad", "k2.check", "phymm.score.fetch",
-                 "phymm.progress"):
-        assert names.count(name) == calls, name
+    for name in ("phymm.score.pad", "phymm.score.fetch", "phymm.progress"):
+        assert names.count(name) == slabs, name
+    assert names.count("k2.check") == calls
     assert "k2.launch" not in names  # the CPU twin launches nothing
-    assert rec["counters"]["k2_host_syncs"] == 4 * calls
+    assert rec["counters"]["k2_host_syncs"] == slabs
+    assert rec["counters"]["k2_checked_by_construction"] == calls
+    assert progress.done == len(reads)
 
 
 def test_stage_timers_are_spans():
